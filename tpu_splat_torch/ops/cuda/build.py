@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (`tpu_splat_torch/csrc/*.cu`).
+
+Each source compiles with nvcc into its own shared library with a plain C interface,
+loaded with ctypes. Libraries are built at first use into `build/kernels/` at the
+repository root (listed in .gitignore), named by a hash of the source and the flags, so
+an edited source rebuilds and an unchanged one is reused. `build_all()` starts one nvcc
+per source at once.
+
+Flags: sm_90a (Hopper), -O3, and --fmad=false so that separate multiplies and adds
+round exactly as PyTorch's elementwise ops do (the blend's stop decisions are compared
+bit for bit with its plain version); kernels that want a fused multiply-add call fmaf.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry point of each source: (name, argtypes); every one returns a cudaError_t
+ENTRY_POINTS = {
+    "expand": ("tpu_splat_expand", (_P, _P, _P, _I, _I, _P, _P, _P)),
+    "blend_fwd": ("tpu_splat_blend_fwd", (_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
+}
+
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA "
+                           "toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _tmp_path(lib: Path) -> Path:
+    return lib.parent / f"{lib.stem}.{os.getpid()}.tmp"
+
+
+def _start_build(name: str) -> subprocess.Popen | None:
+    lib = library_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _tmp_path(lib)
+    log = open(lib.with_suffix(".log"), "w")
+    try:
+        return subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+    finally:
+        log.close()
+
+
+def _finish_build(name: str, proc: subprocess.Popen | None) -> None:
+    if proc is None:
+        return
+    lib = library_path(name)
+    tmp = _tmp_path(lib)
+    if proc.wait() != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu:\n{lib.with_suffix('.log').read_text()}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees the whole file or none
+
+
+def build_all() -> dict[str, Path]:
+    """Build every kernel library, one nvcc per source in parallel. -> {name: .so}"""
+    procs = {name: _start_build(name) for name in ENTRY_POINTS}
+    for name, proc in procs.items():
+        _finish_build(name, proc)
+    return {name: library_path(name) for name in ENTRY_POINTS}
+
+
+def build_log(name: str) -> str:
+    """nvcc/ptxas output of the last build of `name` (registers, spills), or ''."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def kernel(name: str):
+    """The ctypes function of kernel library `name`, built and loaded at first use."""
+    if name not in _loaded:
+        _finish_build(name, _start_build(name))
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return _loaded[name]
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")

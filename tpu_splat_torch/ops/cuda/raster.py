@@ -1,0 +1,223 @@
+"""Instance pipeline: expansion (kernel K1), exact contribution test, tile|depth sort.
+
+Counterpart of `tpu_splat/ops/pallas/raster.py::build_sorted_instances`. Emission stays
+in Gaussian-id order: Gaussian g owns emission slots [offs_excl[g], offs_incl[g]), one
+per tile of its conservative rect. Each slot is expanded to its owner's rows (K1), tested
+against its tile exactly (StopThePop), and the valid ones are sorted by a packed
+(tile | depth-bits) int32 key; the stable sort breaks depth ties in emission order. The
+sort and the per-tile range search are PyTorch library calls, as they are XLA ops (not
+Pallas) in the JAX package.
+
+K1 `expand_emission` launches `csrc/expand.cu` on a CUDA tensor and runs its plain
+version, `expand_emission_plain`, on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..projection import Projected, will_contribute
+from .blend import NFEAT
+from .build import check, kernel
+
+# K1 float rows (per-Gaussian table `ftab` [7, N] and per-slot output `frows` [7, M])
+R_MX, R_MY, R_CA, R_CB, R_CC, R_PTH, R_DEPTH = range(7)
+# K1 int rows: per-Gaussian `itab` [4, N] is (count, tile_min x, tile_min y, rect_w);
+# the per-slot output `irows` [6, M] prepends the owner id and the rect-walk index
+I_POS, I_K, I_COUNT, I_TMINX, I_TMINY, I_RECTW = range(6)
+N_FROWS, N_IROWS = 7, 6
+
+
+def _check_expand_inputs(ftab, itab, offs_incl, max_instances):
+    n = ftab.shape[1]
+    if n == 0:
+        raise ValueError("expand_emission needs at least one Gaussian")
+    if ftab.shape != (N_FROWS, n) or ftab.dtype != torch.float32:
+        raise ValueError(f"ftab must be float32 [{N_FROWS}, N], got {ftab.dtype} "
+                         f"{tuple(ftab.shape)}")
+    if itab.shape != (N_IROWS - 2, n) or itab.dtype != torch.int32:
+        raise ValueError(f"itab must be int32 [{N_IROWS - 2}, N], got {itab.dtype} "
+                         f"{tuple(itab.shape)}")
+    if offs_incl.shape != (n,) or offs_incl.dtype != torch.int32:
+        raise ValueError("offs_incl must be int32 [N]")
+    if not 0 < max_instances < 2**31:
+        raise ValueError(f"max_instances {max_instances} out of int32 range")
+
+
+def expand_emission_plain(ftab, itab, offs_incl, max_instances: int):
+    """Plain version of K1 — the JAX package's XLA lane (raster.py:315-326): scatter-max
+    of each Gaussian's id at its start slot, cummax fill, then one row gather.
+
+    -> (frows [7, M] float32, irows [6, M] int32)."""
+    _check_expand_inputs(ftab, itab, offs_incl, max_instances)
+    dev = ftab.device
+    n = ftab.shape[1]
+    counts = itab[0]
+    offs_excl = offs_incl - counts
+    starts = torch.where(counts > 0, offs_excl, max_instances).clamp_max(max_instances)
+    pos = torch.zeros(max_instances + 1, dtype=torch.int32, device=dev)  # +1: drop slot
+    pos.scatter_reduce_(0, starts.long(), torch.arange(n, dtype=torch.int32, device=dev),
+                        reduce="amax")
+    pos = torch.cummax(pos[:max_instances], dim=0).values
+    slot = torch.arange(max_instances, dtype=torch.int32, device=dev)
+    k = slot - offs_excl.index_select(0, pos)
+    irows = torch.cat([pos[None], k[None], itab.index_select(1, pos)], dim=0)
+    return ftab.index_select(1, pos), irows
+
+
+def expand_emission(ftab, itab, offs_incl, max_instances: int):
+    """K1: per-emission-slot rows. CPU tensors run the plain version; CUDA tensors launch
+    `csrc/expand.cu` (one thread per slot, binary search of offs_incl) or raise.
+
+    -> (frows [7, M] float32, irows [6, M] int32: pos, k, count, tile_min x/y, rect_w)."""
+    if ftab.device.type == "cpu":
+        return expand_emission_plain(ftab, itab, offs_incl, max_instances)
+    _check_expand_inputs(ftab, itab, offs_incl, max_instances)
+    for name, x in (("ftab", ftab), ("itab", itab), ("offs_incl", offs_incl)):
+        if not x.is_cuda or not x.is_contiguous() or x.device != ftab.device:
+            raise ValueError(f"{name} must be a contiguous CUDA tensor on {ftab.device}")
+    frows = torch.empty((N_FROWS, max_instances), dtype=torch.float32, device=ftab.device)
+    irows = torch.empty((N_IROWS, max_instances), dtype=torch.int32, device=ftab.device)
+    err = kernel("expand")(
+        ftab.data_ptr(), itab.data_ptr(), offs_incl.data_ptr(), ftab.shape[1],
+        max_instances, frows.data_ptr(), irows.data_ptr(),
+        torch.cuda.current_stream(ftab.device).cuda_stream,
+    )
+    check(err, "expand")
+    expand_emission.launches += 1
+    return frows, irows
+
+
+expand_emission.launches = 0
+
+
+class SortedInstances(NamedTuple):
+    sorted_tile_id: torch.Tensor  # [MAX_INST] int32 (sentinel n_tiles at the tail)
+    sorted_gid: torch.Tensor  # [MAX_INST] int32
+    sorted_emis: torch.Tensor  # [MAX_INST] int32 — emission index of each sorted instance
+    emis_rank: torch.Tensor  # [MAX_INST] int32 — Gaussian id (segment id) per emission slot
+    emis_start: torch.Tensor  # [N] int32 — per-Gaussian start in emission order
+    emis_end: torch.Tensor  # [N] int32 — per-Gaussian exclusive end in emission order
+    tile_start: torch.Tensor  # [T] int32
+    tile_count: torch.Tensor  # [T] int32 (uncapped)
+    total_instances: torch.Tensor  # [] int32 (conservative rect total)
+    max_tile_count: torch.Tensor  # [] int32
+    n_visible: torch.Tensor  # [] int32
+    gtab: torch.Tensor  # [NFEAT, N] f32 blend features in the F_* rows (blend.py);
+    # the feature pack gathers its columns at sorted_gid
+
+
+def feature_table(proj: Projected) -> torch.Tensor:
+    """Per-Gaussian blend features [NFEAT, N] in the F_* row layout, colour clamped >= 0."""
+    return torch.stack([
+        proj.mean2d[:, 0], proj.mean2d[:, 1],
+        proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
+        proj.opacity,
+        *torch.clamp_min(proj.color, 0.0).unbind(1),
+        proj.depth,
+    ]).contiguous()
+
+
+def emission_tables(proj: Projected):
+    """K1's per-Gaussian inputs: ftab [7, N] f32, itab [4, N] i32 (count, tile_min x/y,
+    rect_w) and offs_incl [N] i32, the inclusive cumsum of the visible rect counts."""
+    counts = torch.where(proj.visible, proj.n_tiles, 0).to(torch.int32)
+    offs_incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    rect_w = torch.clamp_min(proj.tile_max[:, 0] - proj.tile_min[:, 0], 1)
+    ftab = torch.stack([
+        proj.mean2d[:, 0], proj.mean2d[:, 1],
+        proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2],
+        proj.power_threshold, proj.depth,
+    ]).contiguous()
+    itab = torch.stack([counts, proj.tile_min[:, 0], proj.tile_min[:, 1], rect_w]).to(
+        torch.int32).contiguous()
+    return ftab, itab, offs_incl
+
+
+def build_sorted_instances(
+    proj: Projected, grid_w: int, grid_h: int, max_instances: int, tile_size: int,
+    expand: str = "kernel",
+) -> SortedInstances:
+    """Instance emission + (tile, depth) sort.
+
+    expand="kernel" goes through K1's wrapper (the kernel on a CUDA tensor, its plain
+    version on a CPU tensor); expand="plain" runs the plain version on any device."""
+    if expand not in ("kernel", "plain"):
+        raise ValueError(f"expand must be 'kernel' or 'plain', got {expand!r}")
+    dev = proj.depth.device
+    n_tiles = grid_w * grid_h
+
+    # 1. per-Gaussian emission tables (Gaussian-id order)
+    ftab, itab, offs_incl = emission_tables(proj)
+    offs_excl = offs_incl - itab[0]
+
+    # 2. instance expansion (K1)
+    fn = expand_emission if expand == "kernel" else expand_emission_plain
+    frows, irows = fn(ftab, itab, offs_incl, max_instances)
+    pos, k = irows[I_POS], irows[I_K]
+    total = offs_incl[-1]
+    inst_id = torch.arange(max_instances, dtype=torch.int32, device=dev)
+    in_range = (inst_id < total) & (k < irows[I_COUNT])
+
+    # tile coordinates of the rect walk (exact integer division)
+    rw = irows[I_RECTW]
+    ky = torch.div(k, rw, rounding_mode="floor")
+    kx = k - ky * rw
+    tile_x = irows[I_TMINX] + kx
+    tile_y = irows[I_TMINY] + ky
+
+    # 3. exact per-tile contribution test
+    contrib = will_contribute(
+        frows[R_MX:R_MY + 1].T, frows[R_CA:R_CC + 1].T, tile_x, tile_y, frows[R_PTH],
+        tile_size,
+    )
+    valid = in_range & contrib
+    tile_id = torch.where(valid, tile_y * grid_w + tile_x, n_tiles)
+
+    # 4. (tile id, depth) sort, stable: depth ties break in emission order. When tile and
+    # depth bits fit one int32 the two keys pack into one: tile id high, the top bits of
+    # the positive float32 depth's bit pattern (monotone for positive floats) below.
+    tb = max(int(n_tiles).bit_length(), 1)  # bits for tile id incl. sentinel n_tiles
+    db = 31 - tb
+    if db >= 16:
+        depth_bits = torch.clamp_min(frows[R_DEPTH], 0.0).view(torch.int32)
+        key = torch.where(valid, (tile_id << db) | (depth_bits >> (31 - db)),
+                          n_tiles << db)
+        sorted_key, perm = torch.sort(key, stable=True)
+        sorted_tile_id = sorted_key >> db
+    else:
+        depth_key = torch.where(valid, frows[R_DEPTH], float("inf"))
+        by_depth = torch.sort(depth_key, stable=True).indices
+        by_tile = torch.sort(tile_id.index_select(0, by_depth), stable=True).indices
+        perm = by_depth.index_select(0, by_tile)
+        sorted_tile_id = tile_id.index_select(0, perm)
+    sorted_emis = perm.to(torch.int32)
+    sorted_gid = pos.index_select(0, perm)
+
+    # 5. per-tile ranges
+    tiles = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+    bounds = torch.searchsorted(sorted_tile_id.contiguous(), tiles, side="left",
+                                out_int32=True)
+    tile_start = bounds[:-1]
+    tile_count = bounds[1:] - tile_start
+
+    return SortedInstances(
+        sorted_tile_id=sorted_tile_id.to(torch.int32),
+        sorted_gid=sorted_gid,
+        sorted_emis=sorted_emis,
+        emis_rank=pos,
+        emis_start=torch.clamp_max(offs_excl, max_instances),
+        emis_end=torch.clamp_max(offs_incl, max_instances),
+        tile_start=tile_start,
+        tile_count=tile_count,
+        total_instances=total,
+        max_tile_count=tile_count.max(),
+        n_visible=proj.visible.sum(dtype=torch.int32),
+        gtab=feature_table(proj),
+    )
+
+
+__all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_tables",
+           "expand_emission", "expand_emission_plain", "feature_table"]

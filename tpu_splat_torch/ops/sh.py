@@ -1,0 +1,64 @@
+"""Spherical-harmonics color evaluation, degree <= 3 (port of `tpu_splat/ops/sh.py`).
+
+Matches `convert_sh_to_color` (fastgs/rasterization/include/kernel_utils.cuh:15-39): view
+direction = normalize(mean - cam_pos), color = 0.5 + sum over the active bands. Bands
+above the active degree are masked, not sliced, as in the JAX version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.48860251190291987
+SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525251999,
+         -1.0925484305920792, 0.54627421529603959)
+SH_C3 = (0.59004358992664352, 2.8906114426405538, 0.45704579946446572,
+         0.3731763325901154, 1.4453057213202769)
+
+
+def sh_to_color(
+    sh0: torch.Tensor,  # [N, 1, 3]
+    shN: torch.Tensor,  # [N, K-1, 3] (K-1 >= 15 for degree 3; extra bands ignored)
+    dirs: torch.Tensor,  # [N, 3] unnormalized (mean - cam_pos)
+    active_sh_degree: int,
+) -> torch.Tensor:
+    """RGB [N, 3] = 0.5 + SH(dir); NOT clamped here — the blend clamps >= 0."""
+    deg = int(active_sh_degree)
+    if deg > 3 and shN.shape[1] >= 24:
+        raise NotImplementedError("SH degree 4 is not ported; render with degree <= 3")
+    # Safe normalize: dirs can be exactly 0 for dead/degenerate slots
+    norm_sq = torch.sum(dirs * dirs, dim=-1, keepdim=True)
+    d = dirs * torch.rsqrt(torch.clamp_min(norm_sq, 1e-24))
+    x, y, z = d[..., 0:1], d[..., 1:2], d[..., 2:3]  # [N,1]
+
+    result = 0.5 + SH_C0 * sh0[:, 0, :]
+    c = shN  # [N, K-1, 3]
+    if deg >= 1 and c.shape[1] >= 3:
+        b1 = (-SH_C1 * y) * c[:, 0] + (SH_C1 * z) * c[:, 1] + (-SH_C1 * x) * c[:, 2]
+        result = result + b1
+
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    if deg >= 2 and c.shape[1] >= 8:
+        b2 = (
+            (SH_C2[0] * xy) * c[:, 3]
+            + (SH_C2[1] * yz) * c[:, 4]
+            + (0.94617469575755997 * zz - SH_C2[2]) * c[:, 5]
+            + (SH_C2[3] * xz) * c[:, 6]
+            + (SH_C2[4] * xx - SH_C2[4] * yy) * c[:, 7]
+        )
+        result = result + b2
+
+    if deg >= 3 and c.shape[1] >= 15:
+        b3 = (
+            (SH_C3[0] * y * (-3.0 * xx + yy)) * c[:, 8]
+            + (SH_C3[1] * xy * z) * c[:, 9]
+            + (SH_C3[2] * y * (1.0 - 5.0 * zz)) * c[:, 10]
+            + (SH_C3[3] * z * (5.0 * zz - 3.0)) * c[:, 11]
+            + (SH_C3[2] * x * (1.0 - 5.0 * zz)) * c[:, 12]
+            + (SH_C3[4] * z * (xx - yy)) * c[:, 13]
+            + (SH_C3[0] * x * (-xx + 3.0 * yy)) * c[:, 14]
+        )
+        result = result + b3
+    return result
