@@ -6,10 +6,11 @@
 From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 
 1. prints the card (torch name; nvidia-smi name and power limit);
-2. builds every kernel of the render path from `tpu_splat_torch/csrc` (one nvcc per
-   source, in parallel) and prints ptxas' register counts;
-3. holds the blend kernel (K2) against its plain PyTorch version on random unaligned
-   segments at (tile 16, chunk 128) and (tile 32, chunk 256);
+2. builds every kernel from `tpu_splat_torch/csrc` (one nvcc per source, in parallel)
+   and prints ptxas' register counts;
+3. holds the blend kernels against their plain PyTorch versions on random unaligned
+   segments at (tile 16, chunk 128) and (tile 32, chunk 256): K2 forward in the f32 and
+   bf16 layouts, K3 backward in both layouts; and K4 (segment sum) on random runs;
 4. drives the main path: `render_view` of a 1,000,000-Gaussian SH-degree-3 scene at
    1296x840 (the distributions of bench.py::build_workload, seed 0) with every launch
    count set to 0 just before and read just after; checks the aux counters, a finite
@@ -18,7 +19,17 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 5. holds K1 (expansion, exact) and K2 against their plain versions at the frame's own
    shapes, and times kernels, plain versions and the library yardstick with CUDA events;
 6. drives the CLI (`--view` of a 100k-Gaussian PLY written by the port, 3 frames);
-7. prints a `kernels` JSON line, a `frame` JSON line (frame ms and per-stage split) and,
+7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
+   the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
+   render of a perturbed copy of the scene and one `refine_step`, with every launch count
+   set to 0 just before and read just after; checks one launch of K1-K4 a step, no
+   overflow, finite state and a falling loss;
+8. holds `rasterize`'s six parameter gradients through the kernels against the plain
+   versions at the train step's shapes, and K2-bf16, K3 and K4 against their plain
+   versions on the step's own inputs, and times them;
+9. times the step (wall) and its stages (CUDA events);
+10. prints a `kernels` JSON line (all five kernels), a `frame` JSON line (frame ms and
+   per-stage split), a `train` JSON line (step ms, split, plan, counters, losses) and,
    last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
@@ -28,6 +39,7 @@ repetitions after warm-up, on the card named in the output.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -46,6 +58,12 @@ CLI_GAUSS = 100_000
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 K2_OPS_PER_PAIR = 21  # ~20 FP32 operations and one exp per (pixel, instance) pair
+# K3, counted from blend_backward_plain: a pair that is evaluated costs the forward's 21;
+# a pair that is used costs 47 more: g.c 7, w 2, running sum and suffix 2, dL/da 3 (one a
+# divide), dL/dsigma 2, the ten products with their pixel sums 5+5+4+3+4+2+2+2+2+2
+K3_OPS_PER_USED_PAIR = 47
+TRAIN_STEPS = 30
+TILE_T, CHUNK_T = 32, 256  # the trainer's plan (bench.py:91)
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -118,6 +136,34 @@ def check_blend(got, want, label: str) -> float:
     return max(max_err(out[..., :4], out_p[..., :4]), max_err(chk, chk_p))
 
 
+def check_blend_bwd(gflat, gflat_plain, owned, label: str) -> float:
+    """K3 tolerance: max abs error <= 1e-4 of the largest absolute gradient (float32
+    pixel sums in another order; total-minus-prefix against a reverse running sum), and
+    columns owned by no tile exactly zero. -> the relative error."""
+    scale = float(gflat_plain.abs().max())
+    rel = max_err(gflat, gflat_plain) / max(scale, 1e-30)
+    require(scale > 0 and rel <= 1e-4, f"{label}: error {rel} of the max gradient {scale}")
+    require(bool((gflat[:, ~owned] == 0).all()), f"{label}: an unowned column is not zero")
+    return rel
+
+
+def check_segsum(got, want, rows, start, end, label: str) -> float:
+    """K4 tolerance: rtol 1e-5, atol 1e-5 of the run's magnitude (the sum of its absolute
+    values) plus 1e-35 (below float32's normal range a value keeps fewer bits): only the
+    order of float32 adds differs. Empty runs exactly zero. -> max abs error."""
+    from tpu_splat_torch.ops.cuda.raster import segsum_emission_plain
+
+    magnitude = segsum_emission_plain(rows.abs(), start, end)
+    excess = (got - want).abs() - (1e-5 * want.abs() + 1e-5 * magnitude + 1e-35)
+    worst = int(excess.argmax())
+    require(bool((excess <= 0).all()),
+            f"{label}: {int((excess > 0).sum())} sums out of tolerance, worst got "
+            f"{float(got.flatten()[worst])!r} want {float(want.flatten()[worst])!r} "
+            f"magnitude {float(magnitude.flatten()[worst])!r}")
+    require(bool((got[:, end <= start] == 0).all()), f"{label}: an empty run is not zero")
+    return max_err(got, want)
+
+
 def random_segments(tile_size: int, chunk: int, seed: int, dev):
     """Random blend inputs: 8x6 tiles, unaligned contiguous segments with gaps, up to
     4 chunks per tile, footprints of 1-6 px around each tile, opacities high enough
@@ -150,21 +196,36 @@ def random_segments(tile_size: int, chunk: int, seed: int, dev):
 
 
 def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_chunks,
-                chunk) -> int:
+                chunk) -> tuple[int, int]:
     """(pixel, instance) pairs the blend must evaluate on these inputs: per pixel, its
-    tile's instances up to and including the one that stops it (all if none does).
-    Uses the plain version's checkpoints `chk` as each chunk's entry transmittance."""
+    tile's instances up to and including the one that stops it (all if none does); and
+    how many of them it uses (pass the alpha test, before the stop). Uses the
+    checkpoints `chk` as each chunk's entry transmittance; `flat` holds F_* rows."""
     import torch
 
     from tpu_splat_torch.ops.cuda.blend import tile_pixel_centers
-    from tpu_splat_torch.ops.projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA
 
     dev = flat.device
     px, py = tile_pixel_centers(n_tiles, grid_w, tile_size, dev)
     px, py = px[:, None, :], py[:, None, :]
     cnt = count.long()
     lane = torch.arange(chunk, device=dev)
-    total = 0
+    total = used = 0
+    step = max(1, (1 << 26) // (chunk * tile_size * tile_size))
+    for t0 in range(0, n_tiles, step):
+        a, b = _blend_pairs_of(flat, seg_start[t0:t0 + step], cnt[t0:t0 + step],
+                               chk[t0:t0 + step], px[t0:t0 + step], py[t0:t0 + step], lane,
+                               chunk, max_chunks)
+        total, used = total + a, used + b
+    return total, used
+
+
+def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
+    import torch
+
+    from tpu_splat_torch.ops.projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA
+
+    total = used = 0
     for j in range(max_chunks):
         t_entry = chk[:, :, j]  # [T, P]; 0 = stopped or not visited
         if not bool((t_entry > 0).any()):
@@ -186,7 +247,55 @@ def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_
         first = torch.argmax(below.to(torch.int8), dim=1) + 1
         pairs = torch.where(stops, first, n_lanes[:, None])
         total += int(torch.where(t_entry > 0, pairs, 0).sum())
-    return total
+        before_stop = lane[None, :, None] < torch.where(stops, first - 1, chunk)[:, None, :]
+        used += int((valid & before_stop & (t_entry > 0)[:, None, :]).sum())
+    return total, used
+
+
+def train_setup(params, focal, dev):
+    """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
+    image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
+    (tile 32, chunk 256, bf16 pack). -> (ts0, target, cam, bg, plan, step kwargs)"""
+    import torch
+
+    from tpu_splat_torch.convert import splat_from_numpy
+    from tpu_splat_torch.ops.rasterize import rasterize
+    from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig,
+                                                     init_train_state, train_step)
+
+    n = params["means"].shape[0]
+    cam = (np.eye(4, dtype=np.float32), np.zeros(3, np.float32), focal, focal, WIDTH / 2.0,
+           HEIGHT / 2.0)
+    bg0 = np.zeros(3, np.float32)
+    splat = splat_from_numpy(params, np.ones(n, bool), 3, dev, scene_scale=3.0)
+    ts0 = init_train_state(splat, seed=0)
+    probe_plan = RasterPlan(max_instances=1 << 22, k_max=1 << 12, chunk=CHUNK_T,
+                            tile_size=TILE_T)
+    # the target: the port's own render of a perturbed copy of the scene, so the loss can
+    # fall (opacity logits + 1, sh0 * 0.5 + 0.3, as tests/test_mcmc.py does)
+    with torch.no_grad():
+        target = rasterize(
+            splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw + 1.0,
+            splat.sh0 * 0.5 + 0.3, splat.shN, splat.alive, *cam, 0, bg0, width=WIDTH,
+            height=HEIGHT, max_instances=probe_plan.max_instances, k_max=probe_plan.k_max,
+            chunk=CHUNK_T, tile_size=TILE_T, device=dev).image
+    step_kw = dict(width=WIDTH, height=HEIGHT, opt=StepConfig(), total_iterations=30_000)
+    _, probe = train_step(ts0, target, *cam, bg0, 0, plan=probe_plan, **step_kw)
+    total, ktile = int(probe.total_instances), int(probe.max_tile_count)
+    require(0 < total <= probe_plan.max_instances and 0 < ktile <= probe_plan.k_max,
+            ("probe overflow", total, ktile))
+
+    def bucket(v, steps=16):  # bench.py:101-109
+        v = max(v, 256)
+        p2 = 1 << int(np.floor(np.log2(v)))
+        for i in range(steps + 1):
+            if p2 * (1.0 + i / steps) >= v:
+                return int((p2 * (1.0 + i / steps) + 127) // 128) * 128
+        return 2 * p2
+
+    plan = RasterPlan(max_instances=bucket(int(total * 1.1)), k_max=bucket(int(ktile * 1.2), 4),
+                      chunk=CHUNK_T, tile_size=TILE_T, pack_bf16=True)
+    return ts0, target, cam, bg0, plan, step_kw
 
 
 def main() -> int:
@@ -200,12 +309,21 @@ def main() -> int:
     from tpu_splat_torch.convert import splat_from_numpy
     from tpu_splat_torch.io.ply import save_splat_ply
     from tpu_splat_torch.ops.cuda import build
-    from tpu_splat_torch.ops.cuda.blend import blend_forward, blend_forward_plain
+    from tpu_splat_torch.ops.cuda.blend import (blend_backward, blend_backward_plain,
+                                                blend_forward, blend_forward_plain,
+                                                pack_features_bf16, unpack_features)
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
-                                                 expand_emission, expand_emission_plain)
+                                                 expand_emission, expand_emission_plain,
+                                                 feature_table, segsum_emission,
+                                                 segsum_emission_plain)
     from tpu_splat_torch.ops.projection import project
-    from tpu_splat_torch.ops.rasterize import blend_inputs, blend_instances, compose_output
+    from tpu_splat_torch.ops.rasterize import (blend_inputs, blend_instances, compose_output,
+                                               emission_order, rasterize)
     from tpu_splat_torch.render import max_instances_for, render_view
+    from tpu_splat_torch.training import strategy_mcmc
+    from tpu_splat_torch.training.losses import photometric_loss, regularization_losses
+    from tpu_splat_torch.training.optim import adam_step, group_lrs, means_lr_at
+    from tpu_splat_torch.training.train_step import refine_step, train_step
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -213,7 +331,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
-    counted = (expand_emission, blend_forward)
+    counted = (expand_emission, blend_forward, blend_backward, segsum_emission)
+    render_kernels = ("expand_emission", "blend_forward")  # the render path's two
 
     # -- build every kernel of the path from the checkout's sources
     t0 = time.perf_counter()
@@ -224,7 +343,7 @@ def main() -> int:
           libraries=[str(p.name) for p in libs.values()], ptxas=regs)
 
     # -- K2 against its plain version on random unaligned segments
-    k2_random_err = 0.0
+    k2_random_err = k2b_random_err = k3_random_err = 0.0
     for ts, ch, seed in ((16, 128, 1), (32, 256, 2)):
         args, kw = random_segments(ts, ch, seed, dev)
         got = blend_forward(*args, **kw)
@@ -237,6 +356,40 @@ def main() -> int:
         visited = torch.arange(kw["max_chunks"], device=dev) < n_chunks[:, None, None]
         stopped = float(((want[1] == 0) & visited).any(-1).float().mean())
         phase(f"k2-random-{ts}-{ch}", max_abs_err=err, stopped_pixel_share=stopped)
+        # K2 in the bf16 layout, and K3 in both layouts, on the same segments
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gout = 0.3 * torch.randn(got[0].shape, device=dev, generator=gen)
+        owned = torch.zeros(args[0].shape[1], dtype=torch.bool, device=dev)
+        for s0, c in zip(args[1].tolist(), args[2].tolist()):
+            owned[s0:s0 + c] = True
+        for layout, flat_l in (("f32", args[0]), ("bf16", pack_features_bf16(args[0]))):
+            fwd = blend_forward(flat_l, *args[1:], **kw)
+            fwd_plain = blend_forward_plain(flat_l, *args[1:], **kw)
+            err = check_blend(fwd, fwd_plain, f"K2 {layout} random tile {ts} chunk {ch}")
+            k2b_random_err = max(k2b_random_err, err if layout == "bf16" else 0.0)
+            bwd_args = (flat_l, *args[1:], fwd[1], fwd[0], gout)
+            gflat = blend_backward(*bwd_args, **kw)
+            gflat_plain = blend_backward_plain(*bwd_args, **kw)
+            torch.cuda.synchronize()
+            rel = check_blend_bwd(gflat, gflat_plain, owned, f"K3 {layout} random {ts}/{ch}")
+            k3_random_err = max(k3_random_err, rel)
+            phase(f"k3-random-{ts}-{ch}-{layout}", k2_max_abs_err=err, k3_rel_err=rel,
+                  k3_max_abs_grad=float(gflat_plain.abs().max()))
+
+    # -- K4 against its plain version on random runs (empty runs, one very long run)
+    rng = np.random.default_rng(4)
+    run_len = rng.integers(0, 9, 200_000)
+    run_len[rng.random(run_len.size) < 0.25] = 0
+    run_len[70_000] = 300_000
+    run_end = np.cumsum(run_len)
+    k4_args = (torch.randn((10, int(run_end[-1]) + 1000), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(4)),
+               torch.from_numpy((run_end - run_len).astype(np.int32)).to(dev),
+               torch.from_numpy(run_end.astype(np.int32)).to(dev))
+    k4_random_err = check_segsum(segsum_emission(*k4_args), segsum_emission_plain(*k4_args),
+                                 *k4_args, "K4 random runs")
+    phase("k4-random", max_abs_err=k4_random_err, runs=int(run_len.size),
+          empty_runs=int((run_len == 0).sum()), longest_run=int(run_len.max()))
 
     # -- the main path: render_view of the full-width scene
     params, focal = build_workload(N_GAUSS, WIDTH, HEIGHT)
@@ -251,7 +404,8 @@ def main() -> int:
     launches = {fn.__name__: fn.launches for fn in counted}
     aux = {k: int(getattr(out.aux, k)) for k in ("total_instances", "max_tile_count",
                                                   "n_visible")}
-    require(all(v > 0 for v in launches.values()), f"a kernel did not launch: {launches}")
+    require(all(launches[k] > 0 for k in render_kernels),
+            f"a kernel did not launch: {launches}")
     require(0 < aux["total_instances"] <= max_inst, aux)
     require(0 < aux["max_tile_count"] <= 4096, aux)
     require(out.image.shape == (3, HEIGHT, WIDTH), f"image shape {tuple(out.image.shape)}")
@@ -283,7 +437,8 @@ def main() -> int:
     require(int(k1[1][0].max()) < N_GAUSS and int(k1[1][1].max()) < max_inst,
             "K1 owner or rect-walk index out of range")
     inst = build_sorted_instances(proj, gw, gh, max_inst, ts)
-    flat, seg_start, count, max_chunks = blend_inputs(inst, k_max=k_max, chunk=chunk)
+    flat, seg_start, count, max_chunks = blend_inputs(inst, feature_table(proj), k_max=k_max,
+                                                      chunk=chunk)
     bkw = dict(n_tiles=gw * gh, grid_w=gw, tile_size=ts, max_chunks=max_chunks, chunk=chunk)
     k2 = blend_forward(flat, seg_start, count, **bkw)
     k2_plain = blend_forward_plain(flat, seg_start, count, **bkw)
@@ -310,17 +465,19 @@ def main() -> int:
                           warmup=1)
 
     n_inst = int(count.sum())
-    pairs = blend_pairs(flat, seg_start, count, k2_plain[1], **bkw)
+    pairs, _ = blend_pairs(flat, seg_start, count, k2_plain[1], **bkw)
     k1_bytes = 4 * (12 * N_GAUSS + 13 * max_inst)
     k2_bytes = 4 * (10 * n_inst + 2 * gw * gh) + 4 * gw * gh * ts * ts * (8 + max_chunks)
     k2_ops = K2_OPS_PER_PAIR * pairs
     k2_bound_bytes, k2_bound_ops = k2_bytes / PEAK_BYTES_S * 1e3, k2_ops / PEAK_F32_S * 1e3
     kernels = [
         dict(name="expand", route="cuda", source="tpu_splat_torch/csrc/expand.cu",
+             shapes="render frame, 2^24 slots",
              replaces="tpu_splat/ops/pallas/raster.py:61", launches=launches["expand_emission"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
              bound_ms=k1_bytes / PEAK_BYTES_S * 1e3, bound_by="bytes", library_ms=k1_lib_ms),
         dict(name="blend_fwd", route="cuda", source="tpu_splat_torch/csrc/blend_fwd.cu",
+             shapes="render frame, f32 layout, tile 16, chunk 128",
              replaces="tpu_splat/ops/pallas/blend.py:370", launches=launches["blend_forward"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=max(k2_bound_bytes, k2_bound_ops),
@@ -347,8 +504,8 @@ def main() -> int:
         ev[1].record()
         si = build_sorted_instances(p, gw, gh, max_inst, ts)
         ev[2].record()
-        tiles = blend_instances(si, grid_w=gw, grid_h=gh, tile_size=ts, k_max=k_max,
-                                chunk=chunk)
+        tiles = blend_instances(si, feature_table(p), grid_w=gw, grid_h=gh, tile_size=ts,
+                                k_max=k_max, chunk=chunk)
         ev[3].record()
         compose_output(*tiles, bg, grid_w=gw, grid_h=gh, tile_size=ts, width=WIDTH,
                        height=HEIGHT, render_mode="RGB")
@@ -379,11 +536,231 @@ def main() -> int:
             head = png.read_bytes()[:24]
             require(head[:8] == b"\x89PNG\r\n\x1a\n", png)
             require(head[16:24] == struct.pack(">II", 1280, 720), png)  # the CLI's default
-        require(all(v == 3 for v in cli_launches.values()), cli_launches)
+        require(all(cli_launches[k] == 3 for k in render_kernels), cli_launches)
     phase("cli", frames=len(pngs), launches=cli_launches)
+
+
+    # ======================= the training path =======================
+    del state, proj, inst, flat, ftab, itab, offs_incl, out
+    torch.cuda.empty_cache()
+    ts0, target, cam, bg0, plan, step_kw = train_setup(params, focal, dev)
+    splat, cfg = ts0.splat, step_kw["opt"]
+    n_alive0 = int(ts0.splat.n_alive())
+
+    # -- the main path of this slice: train steps and a refine step, launches counted
+    for fn in counted:
+        fn.launches = 0
+    ts, stats, step_wall = ts0, [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, **step_kw)
+        torch.cuda.synchronize()
+        step_wall.append((time.perf_counter() - t0) * 1e3)
+        stats.append(st)
+    n_alive_trained = int(ts.splat.n_alive())
+    ts_refined, info = refine_step(ts, min_opacity=0.005, max_cap=N_GAUSS)
+    torch.cuda.synchronize()
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(st.loss) for st in stats]
+    totals = [int(st.total_instances) for st in stats]
+    ktiles = [int(st.max_tile_count) for st in stats]
+    require(all(v == TRAIN_STEPS for v in train_launches.values()),
+            f"each kernel must launch once a step: {train_launches}")
+    require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
+            ("overflow", max(totals), max(ktiles), plan))
+    require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    for state_i in (ts, ts_refined):
+        for k, v in state_i.splat.params().items():
+            require(bool(torch.isfinite(v).all()), f"non-finite {k}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    require(last5 < first5, f"the loss did not fall: {first5} -> {last5}")
+    require(n_alive_trained == n_alive0 and ts.iteration == TRAIN_STEPS + 1,
+            (n_alive_trained, n_alive0, ts.iteration))
+    refine_info = {k: int(v) for k, v in info.items()}
+    require(refine_info["n_alive"] == n_alive0 + refine_info["n_new"], refine_info)
+    phase("train", steps=TRAIN_STEPS, launches=train_launches, plan=dataclasses.asdict(plan),
+          total_instances=max(totals), max_tile_count=max(ktiles),
+          n_visible=int(stats[-1].n_visible), loss_first5=first5, loss_last5=last5,
+          n_alive=n_alive_trained, refine=refine_info)
+    del ts_refined, stats
+    torch.cuda.empty_cache()
+
+    # -- gradients of rasterize through the kernels against the plain versions, at the
+    # train step's own shapes: one forward + backward each, on the trained state
+    weight = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    names = ("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0", "shN")
+    ras_kw = dict(width=WIDTH, height=HEIGHT, max_instances=plan.max_instances,
+                  k_max=plan.k_max, chunk=CHUNK_T, tile_size=TILE_T, pack_bf16=True,
+                  device=dev)
+
+    def raster_grads(impl):
+        leaves = {k: ts.splat.params()[k].detach().requires_grad_(True) for k in names}
+        img = rasterize(*(leaves[k] for k in names), ts.splat.alive, *cam, 3, bg0, impl=impl,
+                        **ras_kw).image
+        return img.detach(), torch.autograd.grad((img * weight).sum(), list(leaves.values()))
+
+    img_k, grads_k = raster_grads("kernel")
+    img_p, grads_p = raster_grads("plain")
+    torch.cuda.synchronize()
+    grad_err = {}
+    for k, gk, gp in zip(names, grads_k, grads_p):
+        scale = float(gp.abs().max())
+        grad_err[k] = max_err(gk, gp) / max(scale, 1e-30)
+        # float32 sums in another order over up to 1024 pixels and thousands of instances
+        require(scale > 0 and grad_err[k] <= 1e-3, f"gradient of {k}: {grad_err[k]} of {scale}")
+    require(max_err(img_k, img_p) <= 1e-4, "train-shape image differs from the plain one")
+    phase("gradient-parity", rel_err=grad_err, image_err=max_err(img_k, img_p))
+    del img_k, img_p, grads_k, grads_p, weight
+    torch.cuda.empty_cache()
+
+    # -- K2-bf16, K3 and K4 against their plain versions on the step's own inputs; times
+    gw_t, gh_t = -(-WIDTH // TILE_T), -(-HEIGHT // TILE_T)
+    sp = ts.splat
+    with torch.no_grad():
+        proj_t = project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0,
+                         sp.shN, sp.alive, torch.as_tensor(cam[0], device=dev),
+                         torch.zeros(3, device=dev), focal, focal, WIDTH / 2.0, HEIGHT / 2.0,
+                         WIDTH, HEIGHT, 0, tile_size=TILE_T)
+        inst_t = build_sorted_instances(proj_t, gw_t, gh_t, plan.max_instances, TILE_T)
+        flat_t, seg_t, count_t, maxc_t = blend_inputs(inst_t, feature_table(proj_t),
+                                                      k_max=plan.k_max, chunk=CHUNK_T,
+                                                      pack_bf16=True)
+    tkw = dict(n_tiles=gw_t * gh_t, grid_w=gw_t, tile_size=TILE_T, max_chunks=maxc_t,
+               chunk=CHUNK_T)
+    k2b = blend_forward(flat_t, seg_t, count_t, **tkw)
+    k2b_plain = blend_forward_plain(flat_t, seg_t, count_t, **tkw)
+    k2b_err = max(check_blend(k2b, k2b_plain, "K2 bf16 train frame"), k2b_random_err)
+    gout_t = torch.randn(k2b[0].shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(8)) / (3 * WIDTH * HEIGHT)
+    bwd_t = (flat_t, seg_t, count_t, k2b[1], k2b[0], gout_t)
+    k3 = blend_backward(*bwd_t, **tkw)
+    k3_plain = blend_backward_plain(*bwd_t, **tkw)
+    n_valid_t = int(count_t.sum())
+    # the sort leaves the tiles' segments back to back and none is capped (checked
+    # above), so the owned columns are the first n_valid_t
+    owned_t = torch.arange(flat_t.shape[1], device=dev) < n_valid_t
+    k3_err = max(check_blend_bwd(k3, k3_plain, owned_t, "K3 train frame"), k3_random_err)
+    rows_t = emission_order(k3, inst_t.sorted_emis)
+    k4_in = (rows_t, inst_t.emis_start, inst_t.emis_end)
+    k4 = segsum_emission(*k4_in)
+    k4_plain = segsum_emission_plain(*k4_in)
+    k4_err = check_segsum(k4, k4_plain, *k4_in, "K4 train frame")
+    torch.cuda.synchronize()
+
+    k2b_ms = cuda_ms(lambda: blend_forward(flat_t, seg_t, count_t, **tkw), 10)
+    k2b_plain_ms = cuda_ms(lambda: blend_forward_plain(flat_t, seg_t, count_t, **tkw), 2, warmup=1)
+    k3_ms = cuda_ms(lambda: blend_backward(*bwd_t, **tkw), 10)
+    k3_plain_ms = cuda_ms(lambda: blend_backward_plain(*bwd_t, **tkw), 2, warmup=1)
+    k4_ms = cuda_ms(lambda: segsum_emission(*k4_in), 20)
+    k4_plain_ms = cuda_ms(lambda: segsum_emission_plain(*k4_in), 5)
+    rank_long = inst_t.emis_rank.long()
+
+    def library_segsum():  # one PyTorch call: index_add_ of the rows by their owner
+        return torch.zeros((10, N_GAUSS), device=dev).index_add_(1, rank_long, rows_t)
+
+    check_segsum(library_segsum(), k4_plain, *k4_in, "K4 library yardstick")
+    k4_lib_ms = cuda_ms(library_segsum, 20)
+
+    pairs_t, used_t = blend_pairs(unpack_features(flat_t), seg_t, count_t, k2b_plain[1], **tkw)
+    n_slots_t = int(inst_t.total_instances)
+    tp_t = gw_t * gh_t * TILE_T * TILE_T
+    k2b_bytes = 32 * n_valid_t + 8 * gw_t * gh_t + 4 * tp_t * (8 + maxc_t)
+    k3_bytes = 32 * n_valid_t + 8 * gw_t * gh_t + 4 * tp_t * (16 + maxc_t) + 40 * n_valid_t
+    k3_ops = K2_OPS_PER_PAIR * pairs_t + K3_OPS_PER_USED_PAIR * used_t
+    k4_bytes = 40 * n_slots_t + 48 * N_GAUSS
+
+    def bound(n_bytes, n_ops):
+        by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+        return max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
+
+    for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
+        ("blend_fwd_bf16", "blend_fwd.cu", "blend.py:370", "blend_forward", k2b_err, k2b_ms,
+         k2b_plain_ms, bound(k2b_bytes, K2_OPS_PER_PAIR * pairs_t), None),
+        ("blend_bwd", "blend_bwd.cu", "blend.py:564", "blend_backward", k3_err, k3_ms,
+         k3_plain_ms, bound(k3_bytes, k3_ops), None),
+        ("segsum", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
+         k4_plain_ms, bound(k4_bytes, 10 * n_slots_t), k4_lib_ms),
+    ):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}",
+            shapes="train step, bf16 layout, tile 32, chunk 256",
+            replaces=f"tpu_splat/ops/pallas/{replaces}", launches=train_launches[fn_name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib))
+    phase("train-kernel-times", k2_bf16_bytes=k2b_bytes, k3_bytes=k3_bytes, k3_ops=k3_ops,
+          k4_bytes=k4_bytes, pairs=pairs_t, used_pairs=used_t, tile_instances=n_valid_t,
+          emission_slots=n_slots_t, k3_rel_err=k3_err, k4_max_abs_err=k4_err,
+          k4_random_max_abs_err=k4_random_err)
+    del k2b, k2b_plain, k3, k3_plain, k4, k4_plain, rows_t, proj_t, inst_t, flat_t, bwd_t
+    torch.cuda.empty_cache()
+
+    # -- the step's split: the stages of train_step, each between two CUDA events
+    stage_names = ("project", "instances", "pack", "blend_fwd", "loss", "blend_bwd", "gather",
+                   "segsum", "project_bwd", "adam", "noise")
+    split = {k: [] for k in stage_names}
+    target_t = target
+    lrs = dict(group_lrs(cfg, sp.scene_scale))
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stage_names) + 1)]
+        leaves = {k: v.detach().requires_grad_(True) for k, v in sp.params().items()}
+        ev[0].record()
+        pr = project(leaves["means"], leaves["scaling_raw"], leaves["rotation_raw"],
+                     leaves["opacity_raw"], leaves["sh0"], leaves["shN"], sp.alive,
+                     torch.as_tensor(cam[0], device=dev), torch.zeros(3, device=dev), focal,
+                     focal, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, 0, tile_size=TILE_T)
+        gtab = feature_table(pr)
+        ev[1].record()
+        with torch.no_grad():
+            si = build_sorted_instances(pr, gw_t, gh_t, plan.max_instances, TILE_T)
+            ev[2].record()
+            fl, sg, ct, _ = blend_inputs(si, gtab, k_max=plan.k_max, chunk=CHUNK_T,
+                                         pack_bf16=True)
+            ev[3].record()
+            o, c = blend_forward(fl, sg, ct, **tkw)
+        ev[4].record()
+        o_leaf = o.detach().requires_grad_(True)
+        image, _, _ = compose_output(o_leaf[:, :, 0:3], 1.0 - o_leaf[:, :, 3], o_leaf[:, :, 4],
+                                     torch.zeros(3, device=dev), grid_w=gw_t, grid_h=gh_t,
+                                     tile_size=TILE_T, width=WIDTH, height=HEIGHT,
+                                     render_mode="RGB")
+        (go,) = torch.autograd.grad(photometric_loss(image, target_t, cfg.lambda_dssim), o_leaf)
+        ev[5].record()
+        gf = blend_backward(fl, sg, ct, c, o, go.contiguous(), **tkw)
+        ev[6].record()
+        rw = emission_order(gf, si.sorted_emis)
+        ev[7].record()
+        g_gtab = segsum_emission(rw, si.emis_start, si.emis_end)
+        ev[8].record()
+        reg = regularization_losses(leaves, sp.alive, cfg.scale_reg, cfg.opacity_reg)
+        grads = torch.autograd.grad([gtab, reg], list(leaves.values()),
+                                    [g_gtab, torch.ones_like(reg)], allow_unused=True)
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(leaves, grads)}
+        ev[9].record()
+        lrs["means"] = means_lr_at(group_lrs(cfg, sp.scene_scale)["means"], ts.iteration - 1,
+                                   30_000)
+        new_params, _ = adam_step(sp.params(), grads, ts.adam, lrs, ts.iteration)
+        ev[10].record()
+        strategy_mcmc.inject_noise(sp.replace_params(new_params), lrs["means"],
+                                   generator=ts.rng)
+        ev[11].record()
+        ev[11].synchronize()
+        for i, k in enumerate(stage_names):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    split_ms = {k: statistics.median(v[1:]) for k, v in split.items()}
+    train = dict(step_ms=statistics.median(step_wall[3:]), steps_per_s=1e3 / statistics.median(
+        step_wall[3:]), split_ms=split_ms, split_sum_ms=sum(split_ms.values()),
+        steps=TRAIN_STEPS, gaussians=N_GAUSS, width=WIDTH, height=HEIGHT,
+        plan=dataclasses.asdict(plan), launches=train_launches, total_instances=max(totals),
+        max_tile_count=max(ktiles), loss_first=losses[0], loss_last=losses[-1],
+        loss_first5=first5, loss_last5=last5, refine=refine_info,
+        gradient_rel_err=grad_err)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

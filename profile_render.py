@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's render path on one CUDA card.
+"""Device-time breakdown of the port's render path, or train step, on one CUDA card.
 
-    python3 profile_render.py [--frames 3] [--trace PATH]
+    python3 profile_render.py [--train] [--frames 3] [--trace PATH]
 
 Renders chip_smoke.py's scene (1,000,000 Gaussians, SH degree 3, 1296x840, seed 0)
 through `render_view` under torch.profiler, after two warm-up frames, and prints:
 the card (nvidia-smi name and power limit); the kernels ranked by device time per
 frame; one JSON line with frame wall time, summed kernel time per frame and the
 device's idle share of the profiled window. `--trace` also writes a Chrome trace.
+With `--train` a "frame" is one MCMC `train_step` of chip_smoke.py's training workload
+(tile 32, chunk 256, bf16 pack, the plan sized from a probe step).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="profile train steps, not frames")
     ap.add_argument("--trace", help="write a Chrome trace of the profiled frames here")
     args = ap.parse_args(argv)
 
@@ -34,10 +37,11 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device is available", file=sys.stderr)
         return 1
-    from chip_smoke import HEIGHT, N_GAUSS, WIDTH, build_workload
+    from chip_smoke import HEIGHT, N_GAUSS, WIDTH, build_workload, train_setup
     from tpu_splat_torch.convert import splat_from_numpy
     from tpu_splat_torch.ops.cuda.build import build_all
     from tpu_splat_torch.render import render_view
+    from tpu_splat_torch.training.train_step import train_step
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -50,8 +54,18 @@ def main(argv: list[str] | None = None) -> int:
     w2c = np.eye(4, dtype=np.float32)
     fov = math.degrees(2 * math.atan(0.5 * WIDTH / focal))
 
-    def frame():
-        return render_view(state, w2c, WIDTH, HEIGHT, fov, device=dev)
+    if args.train:
+        del state
+        ts, target, cam, bg, plan, step_kw = train_setup(params, focal, dev)
+        print(f"plan: {plan}", flush=True)
+
+        def frame():
+            nonlocal ts
+            ts, stats = train_step(ts, target, *cam, bg, 0, plan=plan, **step_kw)
+            return stats
+    else:
+        def frame():
+            return render_view(state, w2c, WIDTH, HEIGHT, fov, device=dev)
 
     for _ in range(2):
         frame()
@@ -79,7 +93,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{sum(times) / args.frames:9.3f} {sum(times) / busy_ms:6.1%} "
               f"{len(times) / args.frames:11.1f}  {name[:110]}")
     print(json.dumps(dict(
-        frames=args.frames, frame_wall_ms=wall_ms / args.frames,
+        mode="train" if args.train else "render", frames=args.frames, frame_wall_ms=wall_ms / args.frames,
         kernel_ms_per_frame=busy_ms / args.frames,
         kernels_per_frame=len(kernels) / args.frames,
         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),

@@ -5,17 +5,32 @@ They import neither JAX nor the JAX package, so they run where only PyTorch is i
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K1 exactly (integer bookkeeping and row copies); K2 `out` and `chk` atol 1e-5.
+Tolerances: K1 exactly (integer bookkeeping and row copies); K2 `out` and `chk` atol 1e-5
+in both layouts (rtol 1e-5 on the accumulated depth); K3 max abs error <= 1e-4 of the
+largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
+order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
+running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds);
+the train step through the kernels against the same step through the plain versions:
+loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
+move a parameter by lr * sign(g) where |g| is tiny, so a rounding-level difference in a
+near-zero gradient moves that one parameter by a whole lr).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_splat_torch.ops.cuda.blend import blend_forward, blend_forward_plain
-from tpu_splat_torch.ops.cuda.raster import expand_emission, expand_emission_plain
+from tpu_splat_torch.convert import splat_from_numpy
+from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backward_plain,
+                                            blend_forward, blend_forward_plain,
+                                            pack_features_bf16)
+from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_plain,
+                                             segsum_emission, segsum_emission_plain)
+from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
+                                                 train_step)
 
-from torch_fixtures import blend_fixture
+from chip_smoke import random_segments
+from torch_fixtures import blend_fixture, emission_runs
 
 
 def _require_cuda():
@@ -53,3 +68,85 @@ def test_blend_kernel_matches_plain_on_card(chunk):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want_out, rtol=0, atol=1e-5)
     torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", "bf16"])
+@pytest.mark.parametrize("tile_size,chunk", [(16, 128), (32, 256)])
+def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout):
+    _require_cuda()
+    dev = torch.device("cuda")
+    (flat, seg_start, count), kw = random_segments(tile_size, chunk, 7, dev)
+    if layout == "bf16":
+        flat = pack_features_bf16(flat)
+    out, chk = blend_forward(flat, seg_start, count, **kw)
+    want_out, want_chk = blend_forward_plain(flat, seg_start, count, **kw)
+    torch.testing.assert_close(out[..., :4], want_out[..., :4], rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[..., 4:], want_out[..., 4:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gout = 0.3 * torch.randn(out.shape, device=dev, generator=gen)
+    got = blend_backward(flat, seg_start, count, chk, out, gout, **kw)
+    want = blend_backward_plain(flat, seg_start, count, chk, out, gout, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    owned = torch.zeros(flat.shape[1], dtype=torch.bool, device=dev)
+    for s0, c in zip(seg_start.tolist(), count.tolist()):
+        owned[s0:s0 + c] = True
+    assert bool((got[:, ~owned] == 0).all()) and int((~owned).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_segsum_kernel_matches_plain_on_card():
+    _require_cuda()
+    dev = torch.device("cuda")
+    counts, start, end, total = emission_runs(seed=4, n=50_000, long_run=40_000)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randn((NFEAT, total + 1000), device=dev, generator=gen)
+    args = (rows, torch.from_numpy(start).to(dev), torch.from_numpy(end).to(dev))
+    got = segsum_emission(*args)
+    want = segsum_emission_plain(*args)
+    torch.cuda.synchronize()
+    scale = torch.from_numpy(np.sqrt(np.maximum(counts, 1)).astype(np.float32)).to(dev)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * scale).all())
+    assert bool((got[:, torch.from_numpy(counts == 0).to(dev)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack_bf16", [False, True])
+def test_train_step_through_kernels_matches_plain_on_card(pack_bf16):
+    _require_cuda()
+    rng = np.random.default_rng(0)
+    n, cap, size = 3000, 4096, 128
+    pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    params = dict(
+        means=pts, sh0=rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+        shN=rng.normal(0, 0.05, (n, 15, 3)).astype(np.float32),
+        scaling_raw=np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(np.float32),
+        rotation_raw=rng.normal(0, 1, (n, 4)).astype(np.float32),
+        opacity_raw=rng.normal(0, 1, (n, 1)).astype(np.float32))
+    pad = lambda x: np.concatenate([x, np.ones((cap - n,) + x.shape[1:], np.float32)])
+    alive = np.arange(cap) < n
+    splat = splat_from_numpy({k: pad(v) for k, v in params.items()}, alive, 3, "cuda")
+    f = 0.5 * size / np.tan(np.radians(30.0))
+    gt = rng.random((3, size, size)).astype(np.float32)
+    plan = RasterPlan(max_instances=1 << 17, k_max=2048, chunk=256, tile_size=32,
+                      pack_bf16=pack_bf16)
+    args = (gt, np.eye(4, dtype=np.float32), np.zeros(3, np.float32), f, f, size / 2,
+            size / 2, np.zeros(3, np.float32))
+    kw = dict(width=size, height=size, plan=plan, opt=StepConfig(), total_iterations=100,
+              noise=rng.normal(0, 1, (cap, 3)).astype(np.float32))
+    results = []
+    for impl in ("kernel", "plain"):
+        ts = init_train_state(splat, seed=1)
+        for _ in range(2):
+            ts, stats = train_step(ts, *args, impl=impl, **kw)
+        assert int(stats.total_instances) <= plan.max_instances
+        assert int(stats.max_tile_count) <= plan.k_max
+        results.append((float(stats.loss), ts))
+    (loss_k, ts_k), (loss_p, ts_p) = results
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for k, v in ts_k.splat.params().items():
+        off = ((v - ts_p.splat.params()[k]).abs() > 1e-5).float().mean()
+        assert float(off) <= 1e-2, (k, float(off))

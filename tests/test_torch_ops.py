@@ -156,6 +156,9 @@ def test_png_writer_matches_pil_rounding(tmp_path):
 def test_port_imports_no_jax():
     code = (
         "import sys, tpu_splat_torch, tpu_splat_torch.cli, tpu_splat_torch.render\n"
+        "import tpu_splat_torch.convert, tpu_splat_torch.ops.ssim\n"
+        "import tpu_splat_torch.ops.cuda.blend, tpu_splat_torch.ops.cuda.raster\n"
+        "from tpu_splat_torch.training import losses, optim, strategy_mcmc, train_step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_splat'))\n"
         "assert not bad, bad\n"
     )

@@ -22,3 +22,23 @@ def blend_fixture():
     count = np.asarray([512, 512, 500, 512, 100, 300], np.int32)
     seg_start = np.asarray([0, 512, 1024, 1524, 2036, 2136], np.int32)
     return flat, seg_start, count, dict(n_tiles=GW * GH, grid_w=GW, tile_size=TS)
+
+
+def to_jax_bf16(t):
+    """A torch bfloat16 tensor as a JAX bfloat16 array with the same bits."""
+    import jax.numpy as jnp
+    import torch
+
+    return jnp.asarray(t.contiguous().view(torch.int16).numpy()).view(jnp.bfloat16)
+
+
+def emission_runs(seed=0, n=700, long_run=1500):
+    """Random contiguous emission runs over n Gaussians: short runs, empty runs and one
+    very long run. -> (counts, start, end, total), int32 arrays and an int."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 9, n).astype(np.int32)
+    counts[rng.random(n) < 0.25] = 0
+    counts[n // 3] = long_run
+    counts[-3:] = 0  # the last owner is not the last Gaussian
+    end = np.cumsum(counts).astype(np.int32)
+    return counts, (end - counts).astype(np.int32), end, int(end[-1])

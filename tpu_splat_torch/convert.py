@@ -1,8 +1,10 @@
-"""Carry a splat state across the framework boundary as numpy arrays.
+"""Carry a splat or train state across the framework boundary as numpy arrays.
 
 `splat_from_numpy(np.asarray(...) of each JAX SplatState field)` builds the port's state
-on a device; `splat_to_numpy` is its inverse. Nothing here imports JAX: the caller does
-the `np.asarray` on its side.
+on a device; `splat_to_numpy` is its inverse. `train_state_from_numpy` /
+`train_state_to_numpy` do the same for a train state: the splat, Adam's moments and
+per-group step counts, and the iteration. Nothing here imports JAX: the caller does the
+`np.asarray` on its side.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ import numpy as np
 import torch
 
 from .core.splat import PARAM_FIELDS, SplatState
+from .device import resolve_device
+from .training.optim import AdamState
+from .training.train_step import TrainState
 
 
 def splat_from_numpy(
@@ -24,11 +29,11 @@ def splat_from_numpy(
     if missing:
         raise KeyError(f"missing splat parameters: {sorted(missing)}")
     tensors = {
-        k: torch.as_tensor(np.ascontiguousarray(params[k], np.float32), device=device)
+        k: torch.as_tensor(np.array(params[k], np.float32), device=device)
         for k in PARAM_FIELDS
     }
     return SplatState(
-        alive=torch.as_tensor(np.asarray(alive, bool), device=device),
+        alive=torch.as_tensor(np.array(alive, bool), device=device),
         max_sh_degree=int(max_sh_degree), scene_scale=float(scene_scale), **tensors,
     )
 
@@ -37,3 +42,46 @@ def splat_to_numpy(state: SplatState) -> tuple[dict[str, np.ndarray], np.ndarray
     """-> (params, alive, max_sh_degree), the arguments of `splat_from_numpy`."""
     params = {k: v.detach().cpu().numpy() for k, v in state.params().items()}
     return params, state.alive.cpu().numpy(), state.max_sh_degree
+
+
+def train_state_from_numpy(
+    splat_params: dict[str, np.ndarray],
+    alive: np.ndarray,
+    exp_avg: dict[str, np.ndarray],
+    exp_avg_sq: dict[str, np.ndarray],
+    step_count: dict[str, int],
+    iteration: int,
+    *,
+    max_sh_degree: int = 3,
+    scene_scale: float = 1.0,
+    seed: int = 0,
+    device: torch.device | str | None = None,
+) -> TrainState:
+    """A TrainState on `device` (the CUDA card when None; raises without one) from the
+    numpy fields of a JAX TrainState. The random stream does not carry over: the state
+    gets a new `torch.Generator` seeded with `seed`."""
+    dev = resolve_device(device)
+    splat = splat_from_numpy(splat_params, alive, max_sh_degree, dev, scene_scale)
+
+    def moments(d):
+        return {k: torch.as_tensor(np.array(d[k], np.float32), device=dev)
+                for k in PARAM_FIELDS}
+
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(seed)
+    adam = AdamState(exp_avg=moments(exp_avg), exp_avg_sq=moments(exp_avg_sq),
+                     step_count={k: int(step_count[k]) for k in PARAM_FIELDS})
+    return TrainState(splat=splat, adam=adam, rng=rng, iteration=int(iteration))
+
+
+def train_state_to_numpy(ts: TrainState) -> dict:
+    """-> the keyword fields of `train_state_from_numpy` (without seed and device)."""
+    params, alive, degree = splat_to_numpy(ts.splat)
+
+    def moments(d):
+        return {k: v.detach().cpu().numpy() for k, v in d.items()}
+
+    return dict(splat_params=params, alive=alive, exp_avg=moments(ts.adam.exp_avg),
+                exp_avg_sq=moments(ts.adam.exp_avg_sq), step_count=dict(ts.adam.step_count),
+                iteration=ts.iteration, max_sh_degree=degree,
+                scene_scale=ts.splat.scene_scale)

@@ -44,8 +44,14 @@ class SplatState:
     def device(self) -> torch.device:
         return self.means.device
 
+    def n_alive(self) -> torch.Tensor:
+        return torch.sum(self.alive, dtype=torch.int32)
+
     def params(self) -> dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in PARAM_FIELDS}
+
+    def replace_params(self, params: dict[str, torch.Tensor]) -> "SplatState":
+        return dataclasses.replace(self, **params)
 
     def to(self, device: torch.device | str) -> "SplatState":
         return dataclasses.replace(
@@ -133,4 +139,30 @@ def init_from_pointcloud(
         alive=alive,
         max_sh_degree=sh_degree,
         scene_scale=scene_scale,
+    )
+
+
+def init_random(
+    rng: np.random.Generator,
+    num_points: int,
+    extent: float,
+    capacity: int,
+    scene_center: np.ndarray | None = None,
+    sh_degree: int = 3,
+    init_opacity: float = 0.5,
+    init_scaling: float = 0.1,
+    device: torch.device | str = "cpu",
+) -> SplatState:
+    """Random init (`--random`): uniform cube of `extent`, random colors, then positions
+    scaled by scene_scale (splat_data.cpp:516-547). Draws from the numpy generator in the
+    JAX package's order, so the same generator gives the same cloud."""
+    positions = (rng.random((num_points, 3), np.float32) * 2.0 - 1.0) * extent
+    colors = rng.random((num_points, 3), np.float32)
+    center = np.zeros(3, np.float32) if scene_center is None else scene_center
+    dists = np.linalg.norm(positions - center[None], axis=1)
+    scene_scale = float(np.median(dists))
+    positions = positions * scene_scale
+    return init_from_pointcloud(
+        positions, colors, center, capacity, sh_degree, init_opacity, init_scaling,
+        device=device,
     )

@@ -1,7 +1,10 @@
 // K2 — per-tile front-to-back blend, forward, for Hopper (sm_90a).
 //
-// Replaces: tpu_splat/ops/pallas/blend.py::_fwd_kernel (wrapper blend_forward), f32
-// feature layout (F_* rows of a feature-major [>=10, M] instance table).
+// Replaces: tpu_splat/ops/pallas/blend.py::_fwd_kernel (wrapper blend_forward), in both
+// layouts of the feature-major instance table: the f32 F_* rows ([>=10, M] float) and
+// the bf16 B_* rows ([>=15, M] __nv_bfloat16, mean and conic as hi/lo pairs). The loader
+// in blend_common.cuh rebuilds float features once per staged instance; the arithmetic
+// below is the same for both.
 //
 // Per tile t and pixel p (centre tile*ts + idx + 0.5), over the depth-sorted segment
 // [seg_start[t], seg_start[t] + count[t]) walked in chunks of `chunk` instances:
@@ -30,23 +33,15 @@
 // exactly as PyTorch's separate elementwise ops do; only the colour/depth accumulation
 // uses explicit fmaf.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxChunk = 256;
-constexpr int kFeat = 10;  // mx, my, ca, cb, cc, op, r, g, b, depth (F_* rows)
-
-// float32 values of the reference's double constants (rasterization_config.h:11-30)
-constexpr float kMinAlpha = static_cast<float>(1.0 / 255.0);
-constexpr float kMaxAlpha = static_cast<float>(0.999);
-constexpr float kTransmittanceMin = static_cast<float>(1e-4);
+using namespace blend;
 
 template <int PPT>
 __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
-    const float* __restrict__ flat, long long stride,  // [>=kFeat, stride]
+    const void* __restrict__ flat, bool is_bf16, long long stride,  // [rows, stride]
     const int* __restrict__ seg_start, const int* __restrict__ count,  // [T]
     int grid_w, int tile_size, int chunk, int max_chunks,
     float* __restrict__ out,   // [T, P, 8]
@@ -80,10 +75,7 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
     const int n = min(chunk, cnt - j * chunk);
     const long long base = static_cast<long long>(seg0) + static_cast<long long>(j) * chunk;
     if (threadIdx.x < n) {
-#pragma unroll
-      for (int r = 0; r < kFeat; ++r) {
-        s_feat[r][threadIdx.x] = __ldg(flat + r * stride + base + threadIdx.x);
-      }
+      stage_features(flat, is_bf16, stride, base + threadIdx.x, s_feat, threadIdx.x);
     }
 #pragma unroll
     for (int q = 0; q < PPT; ++q) chk[chk_row[q] + j] = dead[q] ? 0.0f : tr[q];
@@ -149,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) blend_fwd_kernel(
 
 }  // namespace
 
-extern "C" int tpu_splat_blend_fwd(const float* flat, long long stride,
+extern "C" int tpu_splat_blend_fwd(const void* flat, int is_bf16, long long stride,
                                    const int* seg_start, const int* count, int n_tiles,
                                    int grid_w, int tile_size, int chunk, int max_chunks,
                                    float* out, float* chk, cudaStream_t stream) {
@@ -160,10 +152,12 @@ extern "C" int tpu_splat_blend_fwd(const float* flat, long long stride,
   const int p = tile_size * tile_size;
   if (p == kThreads) {
     blend_fwd_kernel<1><<<n_tiles, kThreads, 0, stream>>>(
-        flat, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks, out, chk);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks,
+        out, chk);
   } else if (p == 4 * kThreads) {
     blend_fwd_kernel<4><<<n_tiles, kThreads, 0, stream>>>(
-        flat, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks, out, chk);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks,
+        out, chk);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

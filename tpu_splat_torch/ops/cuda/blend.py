@@ -1,21 +1,31 @@
-"""Per-tile front-to-back blend, forward (kernel K2).
+"""Per-tile front-to-back blend: forward (kernel K2) and replay backward (kernel K3).
 
-Counterpart of `tpu_splat/ops/pallas/blend.py::blend_forward` in its f32 feature layout.
-Per tile, the depth-sorted instance segment [seg_start, seg_start + count) of a
-feature-major [>=NFEAT, M] table is composited per pixel in chunks of `chunk` instances:
+Counterpart of `tpu_splat/ops/pallas/blend.py::blend_forward` / `blend_backward`. Per
+tile, the depth-sorted instance segment [seg_start, seg_start + count) of a feature-major
+instance table is composited per pixel in chunks of `chunk` instances:
 
   sigma = 0.5*(A dx^2 + C dy^2) + B dx dy          ; skip if sigma < 0
   alpha = min(opacity * exp(-sigma), 0.999)        ; skip if alpha < 1/255
   T_next = T * (1 - alpha)                         ; STOP (excluding this one) if T_next < 1e-4
   rgb/depth += T * alpha * feature ; T = T_next
 
-Returns out [T, P, 8] = (rgb, T_final, depth, 0, 0, 0) and chk [T, P, max_chunks], each
-chunk's entry transmittance (0 once the pixel has stopped, and for chunks never visited)
-— the replay checkpoints of the backward kernel, which comes with the training slice.
+The table comes in two layouts, told apart by its dtype:
+  float32  [>=10, M]: the F_* rows (mx, my, ca, cb, cc, op, r, g, b, depth);
+  bfloat16 [>=15, M]: the B_* rows — mean and conic as hi/lo pairs that add back to
+    ~float32, opacity/colour/depth as single bf16. `unpack_features` rebuilds the ten
+    float32 rows; the forward AND the backward then run the same float32 arithmetic on
+    those rounded values, so training differentiates a slightly perturbed rasterizer
+    exactly.
 
-`blend_forward` launches `csrc/blend_fwd.cu` on a CUDA tensor and runs the plain version,
-`blend_forward_plain`, on a CPU tensor. The plain version is the chunked closed form of
-`tpu_splat/ops/blend.py` (cumprod of 1 - alpha within each chunk) vectorised over tiles.
+`blend_forward` returns out [T, P, 8] = (rgb, T_final, depth, 0, 0, 0) and
+chk [T, P, max_chunks], each chunk's entry transmittance (0 once the pixel has stopped,
+and for chunks never visited): the replay checkpoints of `blend_backward`, which returns
+the per-instance gradient rows gflat [10, M] (float32; columns owned by no tile are 0).
+
+The wrappers launch `csrc/blend_fwd.cu` / `csrc/blend_bwd.cu` on a CUDA tensor and run the
+plain versions (`*_plain`) on a CPU tensor. The plain versions are the chunked closed
+form of `tpu_splat/ops/blend.py` (cumprod of 1 - alpha within each chunk) vectorised over
+batches of tiles; they keep no autograd graph.
 """
 
 from __future__ import annotations
@@ -23,19 +33,45 @@ from __future__ import annotations
 import torch
 
 from ..projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA, TRANSMITTANCE_THRESHOLD
-from .build import check, kernel
+from .build import check, kernel, require_cuda
 
 # feature rows of the flat instance table (f32 layout of the JAX package's F_* rows)
 F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_D = range(10)
 NFEAT = 10
+# bf16 layout (the JAX package's B_* rows), padded to 16 rows
+(B_MXH, B_MXL, B_MYH, B_MYL, B_CAH, B_CAL, B_CBH, B_CBL, B_CCH, B_CCL,
+ B_OP, B_R, B_G, B_B, B_D) = range(15)
+NFEAT_BF16 = 16
 TILE_SIZES = (16, 32)
 CHUNKS = (128, 256)
+# elements of one [tiles, chunk, P] temporary of the plain versions (256 MB of float32)
+_PLAIN_BATCH_ELEMS = 1 << 26
+
+
+def pack_features_bf16(gtab: torch.Tensor) -> torch.Tensor:
+    """F_* table [10, N] float32 -> B_* table [16, N] bfloat16: hi = bf16(x),
+    lo = bf16(x - f32(hi)) for mean and conic, single bf16 for the rest, one zero row."""
+    hi = gtab[:F_OP].to(torch.bfloat16)
+    lo = (gtab[:F_OP] - hi.to(torch.float32)).to(torch.bfloat16)
+    pairs = torch.stack([hi, lo], dim=1).reshape(2 * F_OP, -1)
+    pad = torch.zeros((NFEAT_BF16 - B_D - 1, gtab.shape[1]), dtype=torch.bfloat16,
+                      device=gtab.device)
+    return torch.cat([pairs, gtab[F_OP:NFEAT].to(torch.bfloat16), pad])
+
+
+def unpack_features(flat: torch.Tensor) -> torch.Tensor:
+    """The ten float32 feature rows of either layout (the f32 table is returned as is)."""
+    if flat.dtype == torch.float32:
+        return flat
+    f = flat[:B_D + 1].to(torch.float32)
+    return torch.cat([f[B_MXH:B_OP:2] + f[B_MXL:B_OP:2], f[B_OP:]])
 
 
 def _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk):
-    if flat.dim() != 2 or flat.shape[0] < NFEAT or flat.dtype != torch.float32:
-        raise ValueError(f"flat must be float32 [>={NFEAT}, M], got {flat.dtype} "
-                         f"{tuple(flat.shape)}")
+    rows = {torch.float32: NFEAT, torch.bfloat16: B_D + 1}.get(flat.dtype)
+    if rows is None or flat.dim() != 2 or flat.shape[0] < rows:
+        raise ValueError(f"flat must be float32 [>={NFEAT}, M] or bfloat16 [>={B_D + 1}, M], "
+                         f"got {flat.dtype} {tuple(flat.shape)}")
     for name, x in (("seg_start", seg_start), ("tile_count", tile_count)):
         if x.shape != (n_tiles,) or x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32 [{n_tiles}], got {x.dtype} "
@@ -48,73 +84,95 @@ def _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunk
         raise ValueError("max_chunks must be >= 1")
 
 
-def tile_pixel_centers(n_tiles: int, grid_w: int, tile_size: int, dev):
+def tile_pixel_centers(n_tiles: int, grid_w: int, tile_size: int, dev, first_tile: int = 0):
     """Pixel centres [T, P] (x and y), row-major pixels within each tile."""
-    t = torch.arange(n_tiles, device=dev)[:, None]
+    t = torch.arange(first_tile, first_tile + n_tiles, device=dev)[:, None]
     idx = torch.arange(tile_size * tile_size, device=dev)[None, :]
     px = ((t % grid_w) * tile_size + idx % tile_size).to(torch.float32) + 0.5
     py = ((t // grid_w) * tile_size + idx // tile_size).to(torch.float32) + 0.5
     return px, py
 
 
+def _tile_batches(n_tiles: int, tile_size: int, chunk: int):
+    step = max(1, _PLAIN_BATCH_ELEMS // (chunk * tile_size * tile_size))
+    return [(t0, min(t0 + step, n_tiles)) for t0 in range(0, n_tiles, step)]
+
+
+def _chunk_alphas(feat, seg_start, count, j, chunk, px, py):
+    """One chunk of a batch of tiles: gathered features f [10, T, C], the instance
+    columns idx [T, C], lane_valid [T, C], and per (tile, instance, pixel) [T, C, P]:
+    dx, dy, gauss, alpha with invalid entries zeroed (a), and the validity mask."""
+    local = j * chunk + torch.arange(chunk, device=feat.device)
+    lane_valid = local[None, :] < count[:, None]  # [T, C]
+    idx = torch.where(lane_valid, seg_start[:, None] + local[None, :], 0)
+    f = feat[:, idx]  # [F, T, C]
+    mx, my, ca, cb, cc, op = (f[i][:, :, None] for i in range(F_OP + 1))  # [T, C, 1]
+    dx = mx - px  # [T, C, P]
+    dy = my - py
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    gauss = torch.exp(-torch.clamp_min(sigma, 0.0))
+    alpha = torch.clamp_max(op * gauss, MAX_FRAGMENT_ALPHA)
+    valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
+    a = torch.where(valid, alpha, 0.0)
+    return f, idx, lane_valid, dx, dy, gauss, a, valid
+
+
+@torch.no_grad()
 def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
                         tile_size: int, max_chunks: int, chunk: int = 128):
-    """Plain version of K2, vectorised over tiles: one [T, chunk, P] closed-form step per
-    chunk (cumprod along the instance axis), as `tpu_splat/ops/blend.py` computes it."""
+    """Plain version of K2, vectorised over batches of tiles: one [T, chunk, P]
+    closed-form step per chunk (cumprod along the instance axis), as
+    `tpu_splat/ops/blend.py` computes it. A bf16 table is unpacked to float32 first."""
     _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
     dev = flat.device
     p = tile_size * tile_size
-    count = tile_count.clamp(0, max_chunks * chunk).long()
-    nch = (count + chunk - 1) // chunk
-    px, py = tile_pixel_centers(n_tiles, grid_w, tile_size, dev)
-    px, py = px[:, None, :], py[:, None, :]  # [T, 1, P]
+    feat = unpack_features(flat)[:NFEAT]
+    outs, chks = [], []
+    for t0, t1 in _tile_batches(n_tiles, tile_size, chunk):
+        nt = t1 - t0
+        start = seg_start[t0:t1].long()
+        count = tile_count[t0:t1].clamp(0, max_chunks * chunk).long()
+        nch = (count + chunk - 1) // chunk
+        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev, first_tile=t0)
+        px, py = px[:, None, :], py[:, None, :]  # [T, 1, P]
 
-    chk = torch.zeros((n_tiles, p, max_chunks), dtype=torch.float32, device=dev)
-    t_run = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
-    dead = torch.zeros((n_tiles, p), dtype=torch.bool, device=dev)
-    acc = torch.zeros((n_tiles, p, 4), dtype=torch.float32, device=dev)
-    lane = torch.arange(chunk, device=dev)
-    n_iter = int(nch.max()) if n_tiles else 0
-    for j in range(n_iter):
-        chk[:, :, j] = torch.where(dead | (j >= nch)[:, None], 0.0, t_run)
-        local = j * chunk + lane
-        lane_valid = local[None, :] < count[:, None]  # [T, C]
-        idx = torch.where(lane_valid, seg_start.long()[:, None] + local[None, :], 0)
-        f = flat[:NFEAT, idx]  # [F, T, C]
-        mx, my, ca, cb, cc, op = (f[i][:, :, None] for i in range(F_OP + 1))  # [T, C, 1]
+        chk = torch.zeros((nt, p, max_chunks), dtype=torch.float32, device=dev)
+        t_run = torch.ones((nt, p), dtype=torch.float32, device=dev)
+        dead = torch.zeros((nt, p), dtype=torch.bool, device=dev)
+        acc = torch.zeros((nt, p, 4), dtype=torch.float32, device=dev)
+        for j in range(int(nch.max()) if nt else 0):
+            chk[:, :, j] = torch.where(dead | (j >= nch)[:, None], 0.0, t_run)
+            f, _, _, _, _, _, a, valid = _chunk_alphas(feat, start, count, j, chunk, px, py)
 
-        dx = mx - px  # [T, C, P]
-        dy = my - py
-        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        alpha = torch.clamp_max(op * torch.exp(-torch.clamp_min(sigma, 0.0)),
-                                MAX_FRAGMENT_ALPHA)
-        valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
-        a = torch.where(valid, alpha, 0.0)
+            one_m = 1.0 - a
+            cp_incl = torch.cumprod(one_m, dim=1)
+            t_incl = t_run[:, None, :] * cp_incl
+            below = t_incl < TRANSMITTANCE_THRESHOLD  # monotone along the chunk
+            alive = ~dead
+            use = valid & ~below & alive[:, None, :]
+            t_excl = t_run[:, None, :] * (cp_incl / one_m)  # one_m >= 1e-3: safe
+            w = torch.where(use, a * t_excl, 0.0)
+            feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
+            acc = acc + torch.einsum("tcp,tck->tpk", w, feat4)
+            # T after the last accepted instance: the smallest not-yet-stopped T_incl
+            t_cand = torch.where(below, t_run[:, None, :], t_incl).amin(dim=1)
+            t_run = torch.where(alive, t_cand, t_run)
+            dead = dead | (valid & below).any(dim=1)
 
-        one_m = 1.0 - a
-        cp_incl = torch.cumprod(one_m, dim=1)
-        t_incl = t_run[:, None, :] * cp_incl
-        below = t_incl < TRANSMITTANCE_THRESHOLD  # monotone along the chunk
-        alive = ~dead
-        use = valid & ~below & alive[:, None, :]
-        t_excl = t_run[:, None, :] * (cp_incl / one_m)  # one_m >= 1e-3: safe
-        w = torch.where(use, a * t_excl, 0.0)
-        feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
-        acc = acc + torch.einsum("tcp,tck->tpk", w, feat4)
-        # T after the last accepted instance: the smallest not-yet-stopped T_incl
-        t_cand = torch.where(below, t_run[:, None, :], t_incl).amin(dim=1)
-        t_run = torch.where(alive, t_cand, t_run)
-        dead = dead | (valid & below).any(dim=1)
-
-    zeros = torch.zeros((n_tiles, p, 3), dtype=torch.float32, device=dev)
-    out = torch.cat([acc[:, :, :3], t_run[:, :, None], acc[:, :, 3:], zeros], dim=2)
-    return out, chk
+        zeros = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
+        outs.append(torch.cat([acc[:, :, :3], t_run[:, :, None], acc[:, :, 3:], zeros], dim=2))
+        chks.append(chk)
+    if not outs:
+        return (torch.zeros((0, p, 8), dtype=torch.float32, device=dev),
+                torch.zeros((0, p, max_chunks), dtype=torch.float32, device=dev))
+    return torch.cat(outs), torch.cat(chks)
 
 
 def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
                   tile_size: int, max_chunks: int, chunk: int = 128):
     """K2. CPU tensors run the plain version; CUDA tensors launch `csrc/blend_fwd.cu`
-    (one 256-thread block per tile) or raise.
+    (one 256-thread block per tile) or raise. `flat` is float32 (F_* rows) or bfloat16
+    (B_* rows).
 
     -> (out [T, P, 8], chk [T, P, max_chunks]), both float32."""
     if flat.device.type == "cpu":
@@ -122,14 +180,13 @@ def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
                                    grid_w=grid_w, tile_size=tile_size,
                                    max_chunks=max_chunks, chunk=chunk)
     _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
-    for name, x in (("flat", flat), ("seg_start", seg_start), ("tile_count", tile_count)):
-        if not x.is_cuda or not x.is_contiguous() or x.device != flat.device:
-            raise ValueError(f"{name} must be a contiguous CUDA tensor on {flat.device}")
+    require_cuda(flat, flat=flat, seg_start=seg_start, tile_count=tile_count)
     p = tile_size * tile_size
     out = torch.empty((n_tiles, p, 8), dtype=torch.float32, device=flat.device)
     chk = torch.empty((n_tiles, p, max_chunks), dtype=torch.float32, device=flat.device)
     err = kernel("blend_fwd")(
-        flat.data_ptr(), flat.stride(0), seg_start.data_ptr(), tile_count.data_ptr(),
+        flat.data_ptr(), int(flat.dtype == torch.bfloat16), flat.stride(0),
+        seg_start.data_ptr(), tile_count.data_ptr(),
         n_tiles, grid_w, tile_size, chunk, max_chunks, out.data_ptr(), chk.data_ptr(),
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
@@ -139,3 +196,106 @@ def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
 
 
 blend_forward.launches = 0
+
+
+def _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks):
+    p = tile_size * tile_size
+    for name, x, last in (("chk", chk, max_chunks), ("out", out, 8), ("gout", gout, 8)):
+        if x.shape != (n_tiles, p, last) or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{n_tiles}, {p}, {last}], got "
+                             f"{x.dtype} {tuple(x.shape)}")
+
+
+@torch.no_grad()
+def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
+                         grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128):
+    """Plain version of K3: an explicit replay from the checkpoints, chunk by chunk from
+    the last to the first, vectorised over batches of tiles — the exact lane of
+    `tpu_splat/ops/pallas/blend.py::_bwd_kernel` (stacked products, exact divides):
+
+      use     = valid & (T_entry cp_incl >= 1e-4)        (T_entry = chk; 0 = never ran)
+      w       = use a T_excl
+      dL/da   = use (T_excl (g.c) - suffix / (1 - a)),  suffix seeded by T_final gout[3]
+      dL/dsig = -a dL/da where op gauss < 0.999
+
+    -> gflat [10, M] float32; columns owned by no tile are zero."""
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+    _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks)
+    dev = flat.device
+    feat = unpack_features(flat)[:NFEAT]
+    gflat = torch.zeros((NFEAT, flat.shape[1]), dtype=torch.float32, device=dev)
+    for t0, t1 in _tile_batches(n_tiles, tile_size, chunk):
+        nt = t1 - t0
+        start = seg_start[t0:t1].long()
+        count = tile_count[t0:t1].clamp(0, max_chunks * chunk).long()
+        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev, first_tile=t0)
+        px, py = px[:, None, :], py[:, None, :]  # [T, 1, P]
+        g4 = gout[t0:t1][:, :, [0, 1, 2, 4]]  # [T, P, 4]: d/d(r, g, b, depth)
+        carry = out[t0:t1, :, 3] * gout[t0:t1, :, 3]  # [T, P]: T_final * d/dT_final
+        live = chk[t0:t1].amax(dim=(0, 1)) > 0  # [max_chunks]
+        n_iter = int(live.nonzero().max()) + 1 if bool(live.any()) else 0
+        for j in reversed(range(n_iter)):
+            t_in = chk[t0:t1, :, j][:, None, :]  # [T, 1, P]
+            f, idx, lane_valid, dx, dy, gauss, a, valid = _chunk_alphas(
+                feat, start, count, j, chunk, px, py)
+            ca, cb, cc, op = (f[i][:, :, None] for i in (F_CA, F_CB, F_CC, F_OP))
+
+            one_m = 1.0 - a
+            cp_incl = torch.cumprod(one_m, dim=1)
+            use = valid & ~(t_in * cp_incl < TRANSMITTANCE_THRESHOLD) & (t_in > 0)
+            t_excl = t_in * (cp_incl / one_m)
+            w = torch.where(use, a * t_excl, 0.0)  # [T, C, P]
+            feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
+            cdotg = torch.einsum("tck,tpk->tcp", feat4, g4)
+            u = w * cdotg
+            # strictly-later instances of this chunk, plus everything in later chunks
+            later = torch.flip(torch.cumsum(torch.flip(u, (1,)), dim=1), (1,)) - u
+            suffix = later + carry[:, None, :]
+            dl_da = torch.where(use, t_excl * cdotg - suffix / one_m, 0.0)
+            not_clamped = op * gauss < MAX_FRAGMENT_ALPHA
+            dl_ds = torch.where(not_clamped, dl_da * -a, 0.0)
+            grads = torch.stack([
+                (dl_ds * (ca * dx + cb * dy)).sum(2),
+                (dl_ds * (cc * dy + cb * dx)).sum(2),
+                (dl_ds * (0.5 * dx * dx)).sum(2),
+                (dl_ds * (dx * dy)).sum(2),
+                (dl_ds * (0.5 * dy * dy)).sum(2),
+                torch.where(not_clamped, dl_da * gauss, 0.0).sum(2),
+                *torch.einsum("tcp,tpk->ktc", w, g4),
+            ])  # [10, T, C]
+            gflat[:, idx[lane_valid]] = grads[:, lane_valid]
+            carry = carry + u.sum(1)
+    return gflat
+
+
+def blend_backward(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
+                   grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128):
+    """K3. CPU tensors run the plain version; CUDA tensors launch `csrc/blend_bwd.cu`
+    (one 256-thread block per tile) or raise. `flat`, the segments, `chk` and `out` are
+    the forward's; `gout` [T, P, 8] holds d/d(rgb) in 0-2, d/dT_final in 3, d/d(depth)
+    in 4.
+
+    -> gflat [10, M] float32: per-instance gradients of the ten F_* features in
+    tile-sorted order; columns owned by no tile are zero."""
+    if flat.device.type == "cpu":
+        return blend_backward_plain(flat, seg_start, tile_count, chk, out, gout,
+                                    n_tiles=n_tiles, grid_w=grid_w, tile_size=tile_size,
+                                    max_chunks=max_chunks, chunk=chunk)
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+    _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks)
+    require_cuda(flat, flat=flat, seg_start=seg_start, tile_count=tile_count, chk=chk,
+                out=out, gout=gout)
+    gflat = torch.zeros((NFEAT, flat.shape[1]), dtype=torch.float32, device=flat.device)
+    err = kernel("blend_bwd")(
+        flat.data_ptr(), int(flat.dtype == torch.bfloat16), flat.stride(0),
+        seg_start.data_ptr(), tile_count.data_ptr(),
+        n_tiles, grid_w, tile_size, chunk, max_chunks,
+        chk.data_ptr(), out.data_ptr(), gout.data_ptr(), gflat.data_ptr(), gflat.stride(0),
+        torch.cuda.current_stream(flat.device).cuda_stream,
+    )
+    check(err, "blend_bwd")
+    blend_backward.launches += 1
+    return gflat
+
+
+blend_backward.launches = 0

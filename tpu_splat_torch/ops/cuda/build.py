@@ -2,9 +2,9 @@
 
 Each source compiles with nvcc into its own shared library with a plain C interface,
 loaded with ctypes. Libraries are built at first use into `build/kernels/` at the
-repository root (listed in .gitignore), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused. `build_all()` starts one nvcc
-per source at once.
+repository root (listed in .gitignore), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an unchanged one is reused.
+`build_all()` starts one nvcc per source at once.
 
 Flags: sm_90a (Hopper), -O3, and --fmad=false so that separate multiplies and adds
 round exactly as PyTorch's elementwise ops do (the blend's stop decisions are compared
@@ -34,7 +34,11 @@ _L = ctypes.c_longlong
 # C entry point of each source: (name, argtypes); every one returns a cudaError_t
 ENTRY_POINTS = {
     "expand": ("tpu_splat_expand", (_P, _P, _P, _I, _I, _P, _P, _P)),
-    "blend_fwd": ("tpu_splat_blend_fwd", (_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
+    "blend_fwd": ("tpu_splat_blend_fwd",
+                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
+    "blend_bwd": ("tpu_splat_blend_bwd",
+                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
+    "segsum": ("tpu_splat_segsum", (_P, _L, _I, _P, _P, _I, _P, _L, _P)),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -52,8 +56,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -118,3 +125,11 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
+
+
+def require_cuda(ref, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on `ref`'s device: what a
+    kernel wrapper demands of a tensor that is not on the CPU."""
+    for name, x in tensors.items():
+        if not x.is_cuda or not x.is_contiguous() or x.device != ref.device:
+            raise ValueError(f"{name} must be a contiguous CUDA tensor on {ref.device}")

@@ -1,4 +1,5 @@
-"""Instance pipeline: expansion (kernel K1), exact contribution test, tile|depth sort.
+"""Instance pipeline: expansion (kernel K1), exact contribution test, tile|depth sort,
+and the per-Gaussian sum of emission-order gradient rows (kernel K4).
 
 Counterpart of `tpu_splat/ops/pallas/raster.py::build_sorted_instances`. Emission stays
 in Gaussian-id order: Gaussian g owns emission slots [offs_excl[g], offs_incl[g]), one
@@ -9,7 +10,10 @@ sort and the per-tile range search are PyTorch library calls, as they are XLA op
 Pallas) in the JAX package.
 
 K1 `expand_emission` launches `csrc/expand.cu` on a CUDA tensor and runs its plain
-version, `expand_emission_plain`, on a CPU tensor.
+version, `expand_emission_plain`, on a CPU tensor. K4 `segsum_emission` (counterpart of
+`tpu_splat/ops/pallas/raster.py::segsum_emission`) does the same with `csrc/segsum.cu` and
+`segsum_emission_plain`: the backward of the feature pack, which sums each Gaussian's
+contiguous run of emission-order gradient rows.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 
 from ..projection import Projected, will_contribute
 from .blend import NFEAT
-from .build import check, kernel
+from .build import check, kernel, require_cuda
 
 # K1 float rows (per-Gaussian table `ftab` [7, N] and per-slot output `frows` [7, M])
 R_MX, R_MY, R_CA, R_CB, R_CC, R_PTH, R_DEPTH = range(7)
@@ -75,9 +79,7 @@ def expand_emission(ftab, itab, offs_incl, max_instances: int):
     if ftab.device.type == "cpu":
         return expand_emission_plain(ftab, itab, offs_incl, max_instances)
     _check_expand_inputs(ftab, itab, offs_incl, max_instances)
-    for name, x in (("ftab", ftab), ("itab", itab), ("offs_incl", offs_incl)):
-        if not x.is_cuda or not x.is_contiguous() or x.device != ftab.device:
-            raise ValueError(f"{name} must be a contiguous CUDA tensor on {ftab.device}")
+    require_cuda(ftab, ftab=ftab, itab=itab, offs_incl=offs_incl)
     frows = torch.empty((N_FROWS, max_instances), dtype=torch.float32, device=ftab.device)
     irows = torch.empty((N_IROWS, max_instances), dtype=torch.int32, device=ftab.device)
     err = kernel("expand")(
@@ -105,8 +107,6 @@ class SortedInstances(NamedTuple):
     total_instances: torch.Tensor  # [] int32 (conservative rect total)
     max_tile_count: torch.Tensor  # [] int32
     n_visible: torch.Tensor  # [] int32
-    gtab: torch.Tensor  # [NFEAT, N] f32 blend features in the F_* rows (blend.py);
-    # the feature pack gathers its columns at sorted_gid
 
 
 def feature_table(proj: Projected) -> torch.Tensor:
@@ -215,9 +215,76 @@ def build_sorted_instances(
         total_instances=total,
         max_tile_count=tile_count.max(),
         n_visible=proj.visible.sum(dtype=torch.int32),
-        gtab=feature_table(proj),
     )
 
 
+def _check_segsum_inputs(rows, emis_start, emis_end):
+    if rows.dim() != 2 or rows.shape[0] != NFEAT or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be float32 [{NFEAT}, M], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    n = emis_start.shape[0]
+    for name, x in (("emis_start", emis_start), ("emis_end", emis_end)):
+        if x.shape != (n,) or x.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 [N], got {x.dtype} {tuple(x.shape)}")
+
+
+LONG_RUN = 64  # runs up to this length are summed slot by slot (csrc/segsum.cu kLongRun)
+
+
+@torch.no_grad()
+def segsum_emission_plain(rows, emis_start, emis_end):
+    """Plain version of K4. Runs of up to LONG_RUN slots are summed slot by slot, all
+    Gaussians at once: step k adds slot start + k of every run that has one, the order
+    the kernel's thread walks its run in. The few longer runs are summed one by one in
+    float64. (A difference of two running sums over the whole emission axis would not do:
+    gradient magnitudes span more than ten decades, and a small run's sum drowns in the
+    rounding of a large prefix.)
+
+    -> [NFEAT, N] float32, out[f, g] = sum of rows[f, emis_start[g]:emis_end[g]]."""
+    _check_segsum_inputs(rows, emis_start, emis_end)
+    m = rows.shape[1]
+    end = emis_end.long().clamp(0, m)
+    start = torch.minimum(emis_start.long().clamp_min(0), end)
+    length = end - start
+    short = length <= LONG_RUN
+    out = torch.zeros((NFEAT, start.shape[0]), dtype=torch.float32, device=rows.device)
+    if m == 0 or start.shape[0] == 0:
+        return out
+    n_steps = int(torch.where(short, length, 0).max())
+    for k in range(n_steps):
+        has = short & (k < length)
+        out = out + torch.where(has, rows.index_select(1, (start + k).clamp_max(m - 1)), 0.0)
+    for g in torch.nonzero(~short)[:, 0].tolist():
+        out[:, g] = rows[:, int(start[g]):int(end[g])].sum(dim=1, dtype=torch.float64)
+    return out
+
+
+def segsum_emission(rows, emis_start, emis_end):
+    """K4: per-Gaussian sums of emission-order rows. CPU tensors run the plain version;
+    CUDA tensors launch `csrc/segsum.cu` (one thread per Gaussian, a warp per long run)
+    or raise.
+
+    rows [NFEAT, M] float32 in emission order; Gaussian g owns slots
+    [emis_start[g], emis_end[g]). -> [NFEAT, N] float32, zero for an empty run."""
+    if rows.device.type == "cpu":
+        return segsum_emission_plain(rows, emis_start, emis_end)
+    _check_segsum_inputs(rows, emis_start, emis_end)
+    require_cuda(rows, rows=rows, emis_start=emis_start, emis_end=emis_end)
+    n = emis_start.shape[0]
+    out = torch.empty((NFEAT, n), dtype=torch.float32, device=rows.device)
+    err = kernel("segsum")(
+        rows.data_ptr(), rows.stride(0), rows.shape[1], emis_start.data_ptr(),
+        emis_end.data_ptr(), n, out.data_ptr(), out.stride(0),
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    check(err, "segsum")
+    segsum_emission.launches += 1
+    return out
+
+
+segsum_emission.launches = 0
+
+
 __all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_tables",
-           "expand_emission", "expand_emission_plain", "feature_table"]
+           "expand_emission", "expand_emission_plain", "feature_table", "segsum_emission",
+           "segsum_emission_plain"]

@@ -3,9 +3,16 @@
   project (projection.py) -> build_sorted_instances (K1, sort; cuda/raster.py)
     -> feature pack + blend_forward (K2; cuda/blend.py) -> assemble_image
 
+It is differentiable: tensors that require grad keep their graph. Projection, SH and the
+image assembly go through autograd; the tile blend is one `torch.autograd.Function`
+(`BlendTiles`, counterpart of `blend_tiles_pallas`'s custom VJP) whose backward is
+blend_backward (K3) -> emission-order gather -> segsum_emission (K4). The instance lists
+(which tile sees which Gaussian, in what order) carry no gradient, as in the JAX package.
+
 There is one pipeline on every device: on a CUDA device the wrappers launch the kernels,
 on the CPU they run the kernels' plain versions. `impl="plain"` runs the plain versions
-on any device (the reference the kernels are held against on the card).
+of all four kernels on any device, forward and backward (the reference the kernels are
+held against on the card).
 
 Static plan, as in the JAX package: `max_instances` (instance budget) and `k_max`
 (per-tile list capacity) bound the work; the returned `aux` counters say whether a frame
@@ -20,8 +27,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .cuda.blend import blend_forward, blend_forward_plain
-from .cuda.raster import SortedInstances, build_sorted_instances
+from .cuda.blend import (blend_backward, blend_backward_plain, blend_forward,
+                         blend_forward_plain, pack_features_bf16)
+from .cuda.raster import (SortedInstances, build_sorted_instances, feature_table,
+                          segsum_emission, segsum_emission_plain)
 from .projection import Projected, project
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB_D", "RGB_ED")
@@ -60,24 +69,72 @@ def assemble_image(
     return img[:, :height, :width], alpha[:height, :width]
 
 
-def blend_inputs(inst: SortedInstances, *, k_max: int, chunk: int):
-    """K2's inputs from the sorted instances: the feature pack (one gather of the
-    per-Gaussian F_* columns into tile-sorted order), the per-tile segments with counts
-    capped at the list capacity, and max_chunks.
-    -> (flat [NFEAT, M], seg_start [T], count [T], max_chunks)"""
+def blend_inputs(inst: SortedInstances, gtab: torch.Tensor, *, k_max: int, chunk: int,
+                 pack_bf16: bool = False):
+    """K2's inputs from the sorted instances and the per-Gaussian F_* table `gtab`
+    [NFEAT, N]: the feature pack (one gather of the per-Gaussian columns into tile-sorted
+    order; with `pack_bf16` of the bf16 B_* table built from `gtab`), the per-tile
+    segments with counts capped at the list capacity, and max_chunks.
+    -> (flat [NFEAT, M] f32 or [16, M] bf16, seg_start [T], count [T], max_chunks)"""
     max_chunks = -(-k_max // chunk)
-    flat = inst.gtab.index_select(1, inst.sorted_gid)
+    table = pack_features_bf16(gtab) if pack_bf16 else gtab
+    flat = table.index_select(1, inst.sorted_gid)
     count_capped = torch.clamp_max(inst.tile_count, max_chunks * chunk)
     return flat, inst.tile_start, count_capped, max_chunks
 
 
-def blend_instances(inst: SortedInstances, *, grid_w: int, grid_h: int, tile_size: int,
-                    k_max: int, chunk: int, impl: str = "kernel"):
-    """Feature pack + K2. -> (tile_colors [T, P, 3], tile_alpha [T, P], tile_depth [T, P])."""
-    flat, seg_start, count, max_chunks = blend_inputs(inst, k_max=k_max, chunk=chunk)
-    fn = blend_forward if impl == "kernel" else blend_forward_plain
-    out, _ = fn(flat, seg_start, count, n_tiles=grid_w * grid_h, grid_w=grid_w,
-                tile_size=tile_size, max_chunks=max_chunks, chunk=chunk)
+def emission_order(gflat: torch.Tensor, sorted_emis: torch.Tensor) -> torch.Tensor:
+    """Per-instance rows [F, M] in tile-sorted order -> emission order: column
+    sorted_emis[c] of the result is column c of `gflat` (sorted_emis is a permutation of
+    the M slots). Slots that failed the contribution test sorted to the unowned tail, so
+    they receive K3's zero columns."""
+    rows = torch.empty_like(gflat)
+    rows.index_copy_(1, sorted_emis.long(), gflat)
+    return rows
+
+
+class BlendTiles(torch.autograd.Function):
+    """Feature pack + K2 forward; K3 -> emission-order gather -> K4 backward.
+
+    forward(gtab [NFEAT, N], inst, dims) -> out [T, P, 8] (rgb, T_final, depth, 0, 0, 0).
+    The only differentiable input is `gtab`; its gradient is the per-Gaussian sum of the
+    per-instance gradient rows, the exact transpose of the pack's gather (with
+    `pack_bf16` the forward and the backward both see the bf16-rounded features, and the
+    gradient is passed straight through the rounding, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, gtab, inst: SortedInstances, dims: dict, impl: str):
+        flat, seg_start, count, max_chunks = blend_inputs(
+            inst, gtab, k_max=dims["k_max"], chunk=dims["chunk"],
+            pack_bf16=dims["pack_bf16"])
+        kw = dict(n_tiles=dims["grid_w"] * dims["grid_h"], grid_w=dims["grid_w"],
+                  tile_size=dims["tile_size"], max_chunks=max_chunks, chunk=dims["chunk"])
+        fwd = blend_forward if impl == "kernel" else blend_forward_plain
+        out, chk = fwd(flat, seg_start, count, **kw)
+        ctx.save_for_backward(flat, seg_start, count, chk, out, inst.sorted_emis,
+                              inst.emis_start, inst.emis_end)
+        ctx.kw, ctx.impl = kw, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        flat, seg_start, count, chk, out, sorted_emis, emis_start, emis_end = ctx.saved_tensors
+        kernels = ctx.impl == "kernel"
+        bwd = blend_backward if kernels else blend_backward_plain
+        gflat = bwd(flat, seg_start, count, chk, out, gout.contiguous(), **ctx.kw)
+        rows = emission_order(gflat, sorted_emis)
+        segsum = segsum_emission if kernels else segsum_emission_plain
+        return segsum(rows, emis_start, emis_end), None, None, None
+
+
+def blend_instances(inst: SortedInstances, gtab: torch.Tensor, *, grid_w: int, grid_h: int,
+                    tile_size: int, k_max: int, chunk: int, impl: str = "kernel",
+                    pack_bf16: bool = False):
+    """Feature pack + K2, differentiable in `gtab`.
+    -> (tile_colors [T, P, 3], tile_alpha [T, P], tile_depth [T, P])."""
+    dims = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size, k_max=k_max,
+                chunk=chunk, pack_bf16=pack_bf16)
+    out = BlendTiles.apply(gtab, inst, dims, impl)
     return out[:, :, 0:3], 1.0 - out[:, :, 3], out[:, :, 4]
 
 
@@ -123,11 +180,15 @@ def rasterize(
     chunk: int = 64,
     tile_size: int = 16,
     render_mode: str = "RGB",  # RGB | D | ED | RGB_D | RGB_ED (rasterizer.hpp:25-32)
+    mean2d_offset=None,  # [N, 2] zeros; pass (requiring grad) to read dL/dmean2d
+    pack_bf16: bool = False,  # bf16 hi/lo feature pack (cuda/blend.py B_* layout)
     device: str | torch.device | None = None,
-    impl: str = "kernel",  # "kernel" (K1/K2 wrappers) | "plain" (plain versions)
+    impl: str = "kernel",  # "kernel" (kernel wrappers) | "plain" (plain versions)
 ) -> RenderOutput:
-    """Forward render of one pinhole camera. Inputs may be numpy arrays or tensors; they
-    are moved to `device` (the CUDA card when None; raises without one)."""
+    """Differentiable render of one pinhole camera. Inputs may be numpy arrays or
+    tensors; they are moved to `device` (the CUDA card when None; raises without one).
+    Tensors that require grad are not detached: `image`, `alpha` and `depth` carry the
+    graph back to them. `aux` carries no gradient."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
     if impl not in ("kernel", "plain"):
@@ -146,12 +207,16 @@ def rasterize(
         w2c, cam_position, fx, fy, cx, cy, width, height, active_sh_degree,
         tile_size=tile_size,
     )
-    inst = build_sorted_instances(proj, grid_w, grid_h, max_instances, tile_size,
-                                  expand=impl)
+    if mean2d_offset is not None:
+        proj = proj._replace(mean2d=proj.mean2d + to_device(mean2d_offset, dev))
+    with torch.no_grad():
+        inst = build_sorted_instances(proj, grid_w, grid_h, max_instances, tile_size,
+                                      expand=impl)
     tile_colors, tile_alpha, tile_depth = blend_instances(
-        inst, grid_w=grid_w, grid_h=grid_h, tile_size=tile_size, k_max=k_max,
+        inst, feature_table(proj), grid_w=grid_w, grid_h=grid_h, tile_size=tile_size,
+        k_max=k_max,
         chunk=chunk if chunk in (128, 256) else 128,  # the kernel's chunk widths
-        impl=impl,
+        impl=impl, pack_bf16=pack_bf16,
     )
     image, alpha, depth = compose_output(
         tile_colors, tile_alpha, tile_depth, bg, grid_w=grid_w, grid_h=grid_h,
@@ -161,6 +226,6 @@ def rasterize(
         total_instances=inst.total_instances,
         max_tile_count=inst.max_tile_count,
         n_visible=inst.n_visible,
-        visible=proj.visible,
+        visible=proj.visible.detach(),
     )
     return RenderOutput(image=image, alpha=alpha, aux=aux, depth=depth)
