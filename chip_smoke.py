@@ -8,10 +8,12 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 1. prints the card (torch name; nvidia-smi name and power limit);
 2. builds every kernel from `tpu_splat_torch/csrc` (one nvcc per source, in parallel)
    and prints ptxas' register counts;
-3. holds the blend kernels against their plain PyTorch versions on random unaligned
-   segments at (tile 16, chunk 128) and (tile 32, chunk 256): K2 forward in the f32 and
-   bf16 layouts, K3 backward in both layouts; and K4 (segment sum) on random runs;
-4. drives the main path: `render_view` of a 1,000,000-Gaussian SH-degree-3 scene at
+3. holds the kernels against their plain PyTorch versions on random inputs: K2 forward
+   (f32 and bf16 layouts) and K3 backward on random unaligned segments at (tile 16,
+   chunk 128) and (tile 32, chunk 256); K4 (10 and 17 rows) and K7 (10 and 17 rows) on
+   random runs with empty runs and one run of 300,000 slots; K5 and K6 on random
+   unaligned segments with rays 4 and 8 wide;
+4. drives the render path: `render_view` of a 1,000,000-Gaussian SH-degree-3 scene at
    1296x840 (the distributions of bench.py::build_workload, seed 0) with every launch
    count set to 0 just before and read just after; checks the aux counters, a finite
    image, that each kernel launched, and the image against the same frame through the
@@ -26,11 +28,20 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    overflow, finite state and a falling loss;
 8. holds `rasterize`'s six parameter gradients through the kernels against the plain
    versions at the train step's shapes, and K2-bf16, K3 and K4 against their plain
-   versions on the step's own inputs, and times them;
-9. times the step (wall) and its stages (CUDA events);
-10. prints a `kernels` JSON line (all five kernels), a `frame` JSON line (frame ms and
-   per-stage split), a `train` JSON line (step ms, split, plan, counters, losses) and,
-   last, {"ok": true, "device": {...}}.
+   versions on the step's own inputs, and times them; times the step (wall) and its
+   stages (CUDA events);
+9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
+   distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
+   rolling-shutter camera at half the size, kernels against plain versions; 20 GUT
+   `train_step`s (`StepConfig(gut=True)`), the last six through the K7 lane, with every
+   launch count set to 0 just before and read just after: K1, K5, K6 once a step and K4 or
+   K7 once a step; the six parameter gradients of `rasterize_gut` under both reduction
+   lanes; K5, K6, K7 and 17-row K4 against their plain versions on the step's own inputs,
+   their times, the GUT frame's time and the GUT step's stage split;
+10. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
+   counts), a `frame` JSON line (frame ms and per-stage split), a `train` JSON line (step
+   ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
+   step) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
 it exits non-zero before printing any result. Times are medians over CUDA-event-timed
@@ -40,6 +51,7 @@ repetitions after warm-up, on the card named in the output.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -62,8 +74,18 @@ K2_OPS_PER_PAIR = 21  # ~20 FP32 operations and one exp per (pixel, instance) pa
 # a pair that is used costs 47 more: g.c 7, w 2, running sum and suffix 2, dL/da 3 (one a
 # divide), dL/dsigma 2, the ten products with their pixel sums 5+5+4+3+4+2+2+2+2+2
 K3_OPS_PER_USED_PAIR = 47
+# K5, counted from gut_blend_forward_plain: v = M d 15, |v|^2 5, max/sqrt/divide 3, n 3,
+# the cross product 9, power 6, exp/alpha/min/test 4, compositing 4
+K5_OPS_PER_PAIR = 49
+# K6, counted from gut_blend_backward_plain: a pair that is evaluated costs the forward's 49;
+# a pair that is used costs 83 more: w 2, g.col 7, running sum and suffix 3, dL/da 3 (one a
+# divide), dL/dpow and d/dop 4, dL/dc 3, the two cross products 18, n.dn 5, dL/dv 9, the
+# nine outer products with their pixel sums 18, gro sums 3, colour and depth sums 8
+K6_OPS_PER_USED_PAIR = 83
 TRAIN_STEPS = 30
 TILE_T, CHUNK_T = 32, 256  # the trainer's plan (bench.py:91)
+CHUNK_GUT = 128  # the GUT blend's chunk (tpu_splat/ops/pallas/blend.py CHUNK)
+GUT_STEPS, GUT_PREFIX_STEPS = 20, 6  # the last six through the K7 lane
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -195,6 +217,58 @@ def random_segments(tile_size: int, chunk: int, seed: int, dev):
     return (torch.from_numpy(flat).to(dev), as_i32(seg_start), as_i32(count)), kw
 
 
+def random_gut_segments(tile_size: int, chunk: int, seed: int, dev, ray_width: int = 4):
+    """Random inputs of the world-ray blend: 8x6 tiles seen by a pinhole camera at the
+    origin, unaligned contiguous segments with gaps, up to 4 chunks per tile, anisotropic
+    Gaussians of 1-6 px footprint on rays through and around each tile, opacities high
+    enough that many pixels stop early. `ray_width` 8 adds per-pixel origin offsets.
+    -> ((flat [17, M], rays [T, P, 4|8], seg_start, count), kw)"""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gw, gh, max_chunks = 8, 6, 4
+    n_tiles, p = gw * gh, tile_size * tile_size
+    focal, cx, cy = 1.2 * gw * tile_size, gw * tile_size / 2, gh * tile_size / 2
+    count = rng.integers(0, max_chunks * chunk + 1, n_tiles)
+    count[:3] = (0, 1, max_chunks * chunk)
+    gaps = rng.integers(0, 200, n_tiles)
+    seg_start = np.cumsum(gaps) + np.concatenate([[0], np.cumsum(count)[:-1]])
+    m = int(seg_start[-1] + count[-1])
+    tile_of = np.zeros(m, np.int64)
+    for t in range(n_tiles):
+        tile_of[seg_start[t]:seg_start[t] + count[t]] = t
+    z = rng.uniform(2.0, 10.0, m)
+    u = (tile_of % gw) * tile_size + rng.uniform(-8, tile_size + 8, m)
+    v = (tile_of // gw) * tile_size + rng.uniform(-8, tile_size + 8, m)
+    mean = np.stack([(u - cx) / focal * z, (v - cy) / focal * z, z], 1)
+    sigma = rng.uniform(1.0, 6.0, (m, 1)) * z[:, None] / focal * rng.uniform(0.5, 1.0, (m, 3))
+    q = rng.normal(0, 1, (m, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, zz = q.T
+    rot = np.stack([1 - 2 * (y * y + zz * zz), 2 * (x * y - w * zz), 2 * (x * zz + w * y),
+                    2 * (x * y + w * zz), 1 - 2 * (x * x + zz * zz), 2 * (y * zz - w * x),
+                    2 * (x * zz - w * y), 2 * (y * zz + w * x), 1 - 2 * (x * x + y * y)],
+                   1).reshape(m, 3, 3)
+    mat = rot.transpose(0, 2, 1) / sigma[:, :, None]  # S^-1 R^T
+    gro = np.einsum("mij,mj->mi", mat, -mean)
+    flat = np.concatenate([mat.reshape(m, 9), gro, rng.uniform(0.05, 1.0, (m, 1)),
+                           rng.uniform(0, 1, (m, 3)), z[:, None]], 1).T.astype(np.float32)
+    t = np.arange(n_tiles)[:, None]
+    idx = np.arange(p)[None, :]
+    px = (t % gw) * tile_size + idx % tile_size + 0.5
+    py = (t // gw) * tile_size + idx // tile_size + 0.5
+    d = np.stack([(px - cx) / focal, (py - cy) / focal, np.ones_like(px)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cols = [d, np.zeros_like(px)[..., None]]
+    if ray_width == 8:
+        cols += [rng.normal(0, 0.01, (n_tiles, p, 3)), np.zeros_like(px)[..., None]]
+    rays = np.concatenate(cols, -1).astype(np.float32)
+    as_i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    kw = dict(n_tiles=n_tiles, tile_size=tile_size, max_chunks=max_chunks, chunk=chunk)
+    return (torch.from_numpy(np.ascontiguousarray(flat)).to(dev),
+            torch.from_numpy(rays).to(dev), as_i32(seg_start), as_i32(count)), kw
+
+
 def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_chunks,
                 chunk) -> tuple[int, int]:
     """(pixel, instance) pairs the blend must evaluate on these inputs: per pixel, its
@@ -220,6 +294,21 @@ def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_
     return total, used
 
 
+def _count_pairs(alpha, valid, t_entry, n_lanes, lane, chunk):
+    """Evaluated and used pairs of one chunk of a batch of tiles, from its alphas and
+    validity [T, C, P], its entry transmittance [T, P] and its lane counts [T]."""
+    import torch
+
+    cp = torch.cumprod(1.0 - torch.where(valid, alpha, 0.0), dim=1)
+    below = (t_entry[:, None, :] * cp < 1e-4) & valid
+    stops = below.any(1)
+    first = torch.argmax(below.to(torch.int8), dim=1) + 1
+    pairs = torch.where(stops, first, n_lanes[:, None])
+    total = int(torch.where(t_entry > 0, pairs, 0).sum())
+    before_stop = lane[None, :, None] < torch.where(stops, first - 1, chunk)[:, None, :]
+    return total, int((valid & before_stop & (t_entry > 0)[:, None, :]).sum())
+
+
 def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
     import torch
 
@@ -232,7 +321,6 @@ def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
             break
         local = j * chunk + lane
         lane_valid = local[None, :] < cnt[:, None]
-        n_lanes = lane_valid.sum(1)  # [T]
         idx = torch.where(lane_valid, seg_start.long()[:, None] + local[None, :], 0)
         f = flat[:6, idx]
         mx, my, ca, cb, cc, op = (f[i][:, :, None] for i in range(6))
@@ -241,45 +329,72 @@ def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
         alpha = torch.clamp_max(op * torch.exp(-torch.clamp_min(sigma, 0.0)),
                                 MAX_FRAGMENT_ALPHA)
         valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
-        cp = torch.cumprod(1.0 - torch.where(valid, alpha, 0.0), dim=1)
-        below = (t_entry[:, None, :] * cp < 1e-4) & valid
-        stops = below.any(1)
-        first = torch.argmax(below.to(torch.int8), dim=1) + 1
-        pairs = torch.where(stops, first, n_lanes[:, None])
-        total += int(torch.where(t_entry > 0, pairs, 0).sum())
-        before_stop = lane[None, :, None] < torch.where(stops, first - 1, chunk)[:, None, :]
-        used += int((valid & before_stop & (t_entry > 0)[:, None, :]).sum())
+        a, b = _count_pairs(alpha, valid, t_entry, lane_valid.sum(1), lane, chunk)
+        total, used = total + a, used + b
     return total, used
 
 
-def train_setup(params, focal, dev):
+def gut_blend_pairs(flat, rays, seg_start, count, chk, *, n_tiles, tile_size, max_chunks,
+                    chunk) -> tuple[int, int]:
+    """`blend_pairs` for the world-ray blend: the (pixel, instance) pairs K5 must evaluate
+    on these inputs, and how many of them it uses."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.gut_kernels import ray_columns, ray_response
+
+    lane = torch.arange(chunk, device=flat.device)
+    total = used = 0
+    step = max(1, (1 << 24) // (chunk * tile_size * tile_size))
+    for t0 in range(0, n_tiles, step):
+        start = seg_start[t0:t0 + step].long()
+        cnt = count[t0:t0 + step].clamp(0, max_chunks * chunk).long()
+        d, do = ray_columns(rays[t0:t0 + step])
+        for j in range(max_chunks):
+            t_entry = chk[t0:t0 + step, :, j]
+            if not bool((t_entry > 0).any()):
+                break
+            _, _, lane_valid, a, valid, _ = ray_response(flat, d, do, start, cnt, j, chunk)
+            x, y = _count_pairs(a, valid, t_entry, lane_valid.sum(1), lane, chunk)
+            total, used = total + x, used + y
+    return total, used
+
+
+def train_setup(params, focal, dev, cam_params=None):
     """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
     image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
-    (tile 32, chunk 256, bf16 pack). -> (ts0, target, cam, bg, plan, step kwargs)"""
+    (tile 32, chunk 256, bf16 pack). With `cam_params` it is the GUT workload: the same
+    scene through that camera model (`StepConfig(gut=True)`, tile 32, chunk 128, float32
+    features). -> (ts0, target, cam, bg, plan, step kwargs)"""
     import torch
 
     from tpu_splat_torch.convert import splat_from_numpy
+    from tpu_splat_torch.ops.gut import rasterize_gut
     from tpu_splat_torch.ops.rasterize import rasterize
     from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig,
                                                      init_train_state, train_step)
 
+    gut = cam_params is not None
+    chunk = CHUNK_GUT if gut else CHUNK_T
     n = params["means"].shape[0]
     cam = (np.eye(4, dtype=np.float32), np.zeros(3, np.float32), focal, focal, WIDTH / 2.0,
            HEIGHT / 2.0)
     bg0 = np.zeros(3, np.float32)
     splat = splat_from_numpy(params, np.ones(n, bool), 3, dev, scene_scale=3.0)
     ts0 = init_train_state(splat, seed=0)
-    probe_plan = RasterPlan(max_instances=1 << 22, k_max=1 << 12, chunk=CHUNK_T,
+    probe_plan = RasterPlan(max_instances=1 << 22, k_max=1 << 12, chunk=chunk,
                             tile_size=TILE_T)
     # the target: the port's own render of a perturbed copy of the scene, so the loss can
     # fall (opacity logits + 1, sh0 * 0.5 + 0.3, as tests/test_mcmc.py does)
+    render = (functools.partial(rasterize_gut, cam_params=cam_params) if gut
+              else functools.partial(rasterize, chunk=chunk))
     with torch.no_grad():
-        target = rasterize(
+        target = render(
             splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw + 1.0,
             splat.sh0 * 0.5 + 0.3, splat.shN, splat.alive, *cam, 0, bg0, width=WIDTH,
             height=HEIGHT, max_instances=probe_plan.max_instances, k_max=probe_plan.k_max,
-            chunk=CHUNK_T, tile_size=TILE_T, device=dev).image
-    step_kw = dict(width=WIDTH, height=HEIGHT, opt=StepConfig(), total_iterations=30_000)
+            tile_size=TILE_T, device=dev).image
+    opt = StepConfig(gut=True, cam_params=cam_params) if gut else StepConfig()
+    step_kw = dict(width=WIDTH, height=HEIGHT, opt=opt, total_iterations=30_000)
     _, probe = train_step(ts0, target, *cam, bg0, 0, plan=probe_plan, **step_kw)
     total, ktile = int(probe.total_instances), int(probe.max_tile_count)
     require(0 < total <= probe_plan.max_instances and 0 < ktile <= probe_plan.k_max,
@@ -294,8 +409,339 @@ def train_setup(params, focal, dev):
         return 2 * p2
 
     plan = RasterPlan(max_instances=bucket(int(total * 1.1)), k_max=bucket(int(ktile * 1.2), 4),
-                      chunk=CHUNK_T, tile_size=TILE_T, pack_bf16=True)
+                      chunk=chunk, tile_size=TILE_T, pack_bf16=not gut)
     return ts0, target, cam, bg0, plan, step_kw
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over its memory rate and
+    operations over its FP32 rate, and which of the two it is."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def check_prefix(got, want, rows, rank, label: str) -> float:
+    """K7 tolerance: rtol 1e-5 plus 1e-5 of the prefix of the rows' absolute values over
+    the same run (plus 1e-35 below float32's normal range): a shuffle tree and a fold of
+    block carries against masked shifted adds, only the order of float32 adds differs.
+    A run head holds its own row exactly. -> max abs error."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import segred_prefix_plain
+
+    magnitude = segred_prefix_plain(rows.abs(), rank)
+    excess = (got - want).abs() - (1e-5 * want.abs() + 1e-5 * magnitude + 1e-35)
+    worst = int(excess.argmax())
+    require(bool((excess <= 0).all()),
+            f"{label}: {int((excess > 0).sum())} prefixes out of tolerance, worst got "
+            f"{float(got.flatten()[worst])!r} want {float(want.flatten()[worst])!r} "
+            f"magnitude {float(magnitude.flatten()[worst])!r}")
+    head = torch.ones_like(rank, dtype=torch.bool)
+    head[1:] = rank[1:] != rank[:-1]
+    require(torch.equal(got[:, head], rows[:, head]), f"{label}: a run head differs")
+    return max_err(got, want)
+
+
+def gut_phases(params, focal, dev, counted, kernels) -> dict:
+    """The GUT camera path on the card: frames of three camera models through the kernels
+    against the plain versions, gradients under both reduction lanes, GUT train steps with
+    the launch counts read around them, K5/K6/K7 and 17-row K4 against their plain versions
+    at the train frame's shapes, and their times. Appends the kernels' entries to `kernels`;
+    -> the `gut` result line."""
+    import torch
+
+    from tpu_splat_torch.ops.cameras import CameraParams
+    from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
+                                                      gut_blend_backward_plain,
+                                                      gut_blend_forward,
+                                                      gut_blend_forward_plain,
+                                                      gut_blend_inputs)
+    from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_order,
+                                                 segred_prefix, segred_prefix_plain,
+                                                 segsum_emission, segsum_emission_plain)
+    from tpu_splat_torch.ops.gut import (gut_feature_table, pixel_world_rays, rasterize_gut,
+                                         ut_project)
+    from tpu_splat_torch.ops.rasterize import compose_output
+    from tpu_splat_torch.training import strategy_mcmc
+    from tpu_splat_torch.training.losses import photometric_loss, regularization_losses
+    from tpu_splat_torch.training.optim import adam_step, group_lrs, means_lr_at
+    from tpu_splat_torch.training.train_step import train_step
+
+    cam_params = CameraParams(radial=(0.05, 0.0, 0.0, 0.0, 0.0, 0.0))
+    ts0, target, cam, bg0, plan, step_kw = train_setup(params, focal, dev, cam_params)
+    sp0 = ts0.splat
+    names = ("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0", "shN")
+    scene = lambda sp: tuple(getattr(sp, k) for k in names) + (sp.alive,)
+    ras_kw = dict(width=WIDTH, height=HEIGHT, max_instances=plan.max_instances,
+                  k_max=plan.k_max, tile_size=TILE_T, device=dev)
+
+    # -- the GUT frame through the kernels against the plain versions
+    def frame_pair(label, sp_args, cam_args, kw, **extra):
+        with torch.no_grad():
+            out_k = rasterize_gut(*sp_args, *cam_args, 3, bg0, impl="kernel", **kw, **extra)
+            out_p = rasterize_gut(*sp_args, *cam_args, 3, bg0, impl="plain", **kw, **extra)
+        torch.cuda.synchronize()
+        aux = {k: int(getattr(out_k.aux, k)) for k in ("total_instances", "max_tile_count",
+                                                        "n_visible")}
+        require(0 < aux["total_instances"] <= kw["max_instances"]
+                and 0 < aux["max_tile_count"] <= kw["k_max"], (label, aux))
+        require(bool(torch.isfinite(out_k.image).all()), f"{label}: non-finite image")
+        errs = dict(image=max_err(out_k.image, out_p.image),
+                    alpha=max_err(out_k.alpha, out_p.alpha))
+        require(errs["image"] <= 1e-4 and errs["alpha"] <= 1e-4, (label, errs))
+        require(0.05 < float(out_k.alpha.mean()) < 1.0, f"{label}: empty frame")
+        return aux, errs
+
+    frame_aux, frame_err = frame_pair("gut frame", scene(sp0), cam, ras_kw,
+                                      cam_params=cam_params)
+    # a fisheye frame (tile 16, rays 4 wide) and a rolling-shutter frame (tile 32, rays 8
+    # wide: per-pixel origins) of the same scene at half the size
+    half = dict(ras_kw, width=WIDTH // 2, height=HEIGHT // 2, max_instances=1 << 22,
+                k_max=1 << 13)
+    half_cam = (cam[0], cam[1], focal / 2, focal / 2, WIDTH / 4.0, HEIGHT / 4.0)
+    fish_aux, fish_err = frame_pair(
+        "fisheye frame", scene(sp0), half_cam, dict(half, tile_size=16),
+        cam_params=CameraParams(model="fisheye", radial=(0.05, -0.01, 0.0, 0.0, 0.0, 0.0)))
+    q_end = np.asarray([1.0, 0.002, -0.003, 0.001], np.float32)
+    pose = (np.asarray([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32),
+            q_end / np.linalg.norm(q_end), np.asarray([0.05, -0.02, 0.0], np.float32))
+    roll_aux, roll_err = frame_pair(
+        "rolling-shutter frame", scene(sp0), half_cam, half,
+        cam_params=dataclasses.replace(cam_params, shutter="top_to_bottom"),
+        shutter_pose=pose)
+    phase("gut-frames", frame=dict(frame_aux, **frame_err), fisheye=dict(fish_aux, **fish_err),
+          rolling=dict(roll_aux, **roll_err))
+
+    # -- the main path of this slice: GUT train steps, launches counted
+    for fn in counted:
+        fn.launches = 0
+    ts, stats, step_wall = ts0, [], []
+    for i in range(GUT_STEPS):
+        lane = "prefix" if i >= GUT_STEPS - GUT_PREFIX_STEPS else "segsum"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, segred_impl=lane, **step_kw)
+        torch.cuda.synchronize()
+        step_wall.append((time.perf_counter() - t0) * 1e3)
+        stats.append(st)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    losses = [float(st.loss) for st in stats]
+    totals = [int(st.total_instances) for st in stats]
+    ktiles = [int(st.max_tile_count) for st in stats]
+    require(all(launches[k] == GUT_STEPS for k in ("expand_emission", "gut_blend_forward",
+                                                   "gut_blend_backward")),
+            f"K1, K5 and K6 must launch once a step: {launches}")
+    require(launches["segred_prefix"] == GUT_PREFIX_STEPS
+            and launches["segsum_emission"] == GUT_STEPS - GUT_PREFIX_STEPS,
+            f"K4 or K7 must launch once a step: {launches}")
+    require(launches["blend_forward"] == 0 and launches["blend_backward"] == 0, launches)
+    require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
+            ("overflow", max(totals), max(ktiles), plan))
+    require(all(math.isfinite(v) for v in losses), "non-finite loss")
+    for k, v in ts.splat.params().items():
+        require(bool(torch.isfinite(v).all()), f"non-finite {k}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    require(last5 < first5, f"the GUT loss did not fall: {first5} -> {last5}")
+    phase("gut-train", steps=GUT_STEPS, launches=launches, plan=dataclasses.asdict(plan),
+          total_instances=max(totals), max_tile_count=max(ktiles),
+          n_visible=int(stats[-1].n_visible), loss_first5=first5, loss_last5=last5)
+    del stats
+
+    # -- gradients of rasterize_gut: kernels against plain versions under both reduction
+    # lanes, and the lanes against each other, at the train shapes on the trained state
+    weight = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+
+    def gut_grads(impl, lane):
+        leaves = [getattr(ts.splat, k).detach().requires_grad_(True) for k in names]
+        img = rasterize_gut(*leaves, ts.splat.alive, *cam, 3, bg0, cam_params=cam_params,
+                            impl=impl, segred_impl=lane, **ras_kw).image
+        return img.detach(), torch.autograd.grad((img * weight).sum(), leaves)
+
+    runs = {(impl, lane): gut_grads(impl, lane) for impl in ("kernel", "plain")
+            for lane in ("segsum", "prefix")}
+    torch.cuda.synchronize()
+    grad_err = {}
+    for label, a, b in (("segsum", ("kernel", "segsum"), ("plain", "segsum")),
+                        ("prefix", ("kernel", "prefix"), ("plain", "prefix")),
+                        ("lanes", ("kernel", "segsum"), ("kernel", "prefix"))):
+        grad_err[label] = {}
+        for k, ga, gb in zip(names, runs[a][1], runs[b][1]):
+            scale = float(gb.abs().max())
+            grad_err[label][k] = max_err(ga, gb) / max(scale, 1e-30)
+            require(scale > 0 and grad_err[label][k] <= 1e-3,
+                    f"GUT gradient of {k} ({label}): {grad_err[label][k]} of {scale}")
+        require(max_err(runs[a][0], runs[b][0]) <= 1e-4, f"GUT image differs ({label})")
+    phase("gut-gradient-parity", rel_err=grad_err)
+    del runs, weight
+    torch.cuda.empty_cache()
+
+    # -- K5, K6, K7 and 17-row K4 against their plain versions on the step's own inputs
+    gw, gh = -(-WIDTH // TILE_T), -(-HEIGHT // TILE_T)
+    n_tiles = gw * gh
+    sp = ts.splat
+    w2c_t, pos_t = torch.as_tensor(cam[0], device=dev), torch.zeros(3, device=dev)
+    intr = cam[2:]
+    ray_kw = dict(grid_w=gw, grid_h=gh, tile_size=TILE_T, width=WIDTH, height=HEIGHT)
+    with torch.no_grad():
+        proj, comp = ut_project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
+                                sp.alive, w2c_t, *intr, cam_params, WIDTH, HEIGHT, TILE_T, None)
+        inst = build_sorted_instances(proj, gw, gh, plan.max_instances, TILE_T)
+        rays = pixel_world_rays(w2c_t, pos_t, *intr, cam_params, None, None, **ray_kw)
+        gtab = gut_feature_table(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
+                                 sp.sh0, sp.shN, pos_t, 0, proj, comp)
+        flat, seg, cnt, maxc = gut_blend_inputs(inst, gtab, k_max=plan.k_max, chunk=CHUNK_GUT)
+    kkw = dict(n_tiles=n_tiles, tile_size=TILE_T, max_chunks=maxc, chunk=CHUNK_GUT)
+    k5 = gut_blend_forward(flat, rays, seg, cnt, **kkw)
+    k5_plain = gut_blend_forward_plain(flat, rays, seg, cnt, **kkw)
+    k5_err = check_blend(k5, k5_plain, "K5 train frame")
+    gout = torch.randn(k5[0].shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(8)) / (3 * WIDTH * HEIGHT)
+    bwd = (flat, rays, seg, cnt, k5[1], k5[0], gout)
+    k6 = gut_blend_backward(*bwd, **kkw)
+    k6_plain = gut_blend_backward_plain(*bwd, **kkw)
+    n_valid = int(cnt.sum())
+    # the UT projection's threshold is +inf: every tile of a Gaussian's rect is an instance
+    require(n_valid == int(inst.total_instances), ("a GUT rect tile was culled", n_valid))
+    owned = torch.arange(flat.shape[1], device=dev) < n_valid  # segments lie back to back
+    k6_err = check_blend_bwd(k6, k6_plain, owned, "K6 train frame")
+    rows = emission_order(k6, inst.sorted_emis)
+    k4_in = (rows, inst.emis_start, inst.emis_end)
+    k4 = segsum_emission(*k4_in)
+    k4_plain = segsum_emission_plain(*k4_in)
+    k4_err = check_segsum(k4, k4_plain, *k4_in, "K4 17 rows, GUT frame")
+    k7 = segred_prefix(rows, inst.emis_rank)
+    k7_plain = segred_prefix_plain(rows, inst.emis_rank)
+    k7_err = check_prefix(k7, k7_plain, rows, inst.emis_rank, "K7 GUT frame")
+    torch.cuda.synchronize()
+
+    k5_ms = cuda_ms(lambda: gut_blend_forward(flat, rays, seg, cnt, **kkw), 10)
+    k5_plain_ms = cuda_ms(lambda: gut_blend_forward_plain(flat, rays, seg, cnt, **kkw), 2,
+                          warmup=1)
+    k6_ms = cuda_ms(lambda: gut_blend_backward(*bwd, **kkw), 10)
+    k6_plain_ms = cuda_ms(lambda: gut_blend_backward_plain(*bwd, **kkw), 2, warmup=1)
+    k4_ms = cuda_ms(lambda: segsum_emission(*k4_in), 20)
+    k4_plain_ms = cuda_ms(lambda: segsum_emission_plain(*k4_in), 5)
+    k7_ms = cuda_ms(lambda: segred_prefix(rows, inst.emis_rank), 20)
+    k7_plain_ms = cuda_ms(lambda: segred_prefix_plain(rows, inst.emis_rank), 3)
+    rank_long = inst.emis_rank.long()
+    n_gauss = sp.means.shape[0]
+
+    def library_segsum():  # one PyTorch call: index_add_ of the rows by their owner
+        return torch.zeros((17, n_gauss), device=dev).index_add_(1, rank_long, rows)
+
+    check_segsum(library_segsum(), k4_plain, *k4_in, "K4 17-row library yardstick")
+    k4_lib_ms = cuda_ms(library_segsum, 20)
+
+    pairs, used = gut_blend_pairs(flat, rays, seg, cnt, k5_plain[1], **kkw)
+    n_slots, m = int(inst.total_instances), rows.shape[1]
+    tp = n_tiles * TILE_T * TILE_T
+    k5_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (8 + maxc)
+    k6_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (16 + maxc) + 68 * n_valid
+    k6_ops = K5_OPS_PER_PAIR * pairs + K6_OPS_PER_USED_PAIR * used
+    k7_bytes = 2 * 4 * 17 * m + 4 * m
+    k4_bytes = 68 * n_slots + 76 * n_gauss
+    shapes = f"GUT train step, tile 32, chunk {CHUNK_GUT}, rays 4 wide"
+    for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
+        ("gut_fwd", "gut_fwd.cu", "gut_kernels.py:108", "gut_blend_forward", k5_err, k5_ms,
+         k5_plain_ms, bound_ms(k5_bytes, K5_OPS_PER_PAIR * pairs), None),
+        ("gut_bwd", "gut_bwd.cu", "gut_kernels.py:243", "gut_blend_backward", k6_err, k6_ms,
+         k6_plain_ms, bound_ms(k6_bytes, k6_ops), None),
+        ("segprefix", "segprefix.cu", "raster.py:454", "segred_prefix", k7_err, k7_ms,
+         k7_plain_ms, bound_ms(k7_bytes, 17 * m), None),
+        ("segsum_17", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
+         k4_plain_ms, bound_ms(k4_bytes, 17 * n_slots), k4_lib_ms),
+    ):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}", shapes=shapes,
+            replaces=f"tpu_splat/ops/pallas/{replaces}", launches=launches[fn_name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib))
+    phase("gut-kernel-times", k5_bytes=k5_bytes, k6_bytes=k6_bytes, k6_ops=k6_ops,
+          k7_bytes=k7_bytes, k4_17_bytes=k4_bytes, pairs=pairs, used_pairs=used,
+          tile_instances=n_valid, emission_slots=n_slots, slots=m, k6_rel_err=k6_err,
+          k7_max_abs_err=k7_err, k4_17_max_abs_err=k4_err)
+    del k5, k5_plain, k6, k6_plain, k4, k4_plain, k7, k7_plain, rows, bwd, gout, flat, gtab
+    torch.cuda.empty_cache()
+
+    # -- the GUT frame's time (no gradient) and the step's split: the stages of
+    # train_step, each between two CUDA events
+    frame_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rasterize_gut(*scene(sp), *cam, 0, bg0, cam_params=cam_params, **ras_kw)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    stage_names = ("ut_project", "instances", "rays", "features", "gather", "gut_fwd", "loss",
+                   "gut_bwd", "emission_gather", "segsum", "features_bwd", "adam", "noise")
+    split = {k: [] for k in stage_names}
+    cfg = step_kw["opt"]
+    lrs = dict(group_lrs(cfg, sp.scene_scale))
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stage_names) + 1)]
+        leaves = {k: v.detach().requires_grad_(True) for k, v in sp.params().items()}
+        ev[0].record()
+        pr, cp = ut_project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.alive,
+                            w2c_t, *intr, cam_params, WIDTH, HEIGHT, TILE_T, None)
+        ev[1].record()
+        with torch.no_grad():
+            si = build_sorted_instances(pr, gw, gh, plan.max_instances, TILE_T)
+        ev[2].record()
+        ry = pixel_world_rays(w2c_t, pos_t, *intr, cam_params, None, None, **ray_kw)
+        ev[3].record()
+        gt = gut_feature_table(leaves["means"], leaves["scaling_raw"], leaves["rotation_raw"],
+                               leaves["opacity_raw"], leaves["sh0"], leaves["shN"], pos_t, 0,
+                               pr, cp)
+        ev[4].record()
+        with torch.no_grad():
+            fl, sg, ct, _ = gut_blend_inputs(si, gt, k_max=plan.k_max, chunk=CHUNK_GUT)
+            ev[5].record()
+            o, c = gut_blend_forward(fl, ry, sg, ct, **kkw)
+        ev[6].record()
+        o_leaf = o.detach().requires_grad_(True)
+        image, _, _ = compose_output(o_leaf[:, :, 0:3], 1.0 - o_leaf[:, :, 3], o_leaf[:, :, 4],
+                                     torch.zeros(3, device=dev), grid_w=gw, grid_h=gh,
+                                     tile_size=TILE_T, width=WIDTH, height=HEIGHT,
+                                     render_mode="RGB")
+        (go,) = torch.autograd.grad(photometric_loss(image, target, cfg.lambda_dssim), o_leaf)
+        ev[7].record()
+        gf = gut_blend_backward(fl, ry, sg, ct, c, o, go.contiguous(), **kkw)
+        ev[8].record()
+        rw = emission_order(gf, si.sorted_emis)
+        ev[9].record()
+        g_gt = segsum_emission(rw, si.emis_start, si.emis_end)
+        ev[10].record()
+        reg = regularization_losses(leaves, sp.alive, cfg.scale_reg, cfg.opacity_reg)
+        grads = torch.autograd.grad([gt, reg], list(leaves.values()),
+                                    [g_gt, torch.ones_like(reg)], allow_unused=True)
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(leaves, grads)}
+        ev[11].record()
+        lrs["means"] = means_lr_at(group_lrs(cfg, sp.scene_scale)["means"], ts.iteration - 1,
+                                   30_000)
+        new_params, _ = adam_step(sp.params(), grads, ts.adam, lrs, ts.iteration)
+        ev[12].record()
+        strategy_mcmc.inject_noise(sp.replace_params(new_params), lrs["means"],
+                                   generator=ts.rng)
+        ev[13].record()
+        ev[13].synchronize()
+        for i, k in enumerate(stage_names):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    split_ms = {k: statistics.median(v[1:]) for k, v in split.items()}
+    seg_ms = statistics.median(step_wall[3:GUT_STEPS - GUT_PREFIX_STEPS])
+    pre_ms = statistics.median(step_wall[GUT_STEPS - GUT_PREFIX_STEPS + 1:])
+    return dict(
+        camera="pinhole, radial k1 = 0.05", frame_ms=statistics.median(frame_ms[1:]),
+        step_ms=seg_ms, steps_per_s=1e3 / seg_ms, step_ms_prefix_lane=pre_ms,
+        split_ms=split_ms, split_sum_ms=sum(split_ms.values()), steps=GUT_STEPS,
+        prefix_steps=GUT_PREFIX_STEPS, gaussians=n_gauss, width=WIDTH, height=HEIGHT,
+        plan=dataclasses.asdict(plan), launches=launches, total_instances=max(totals),
+        max_tile_count=max(ktiles), frame=dict(frame_aux, **frame_err),
+        fisheye_frame=dict(fish_aux, **fish_err), rolling_frame=dict(roll_aux, **roll_err),
+        loss_first=losses[0], loss_last=losses[-1], loss_first5=first5, loss_last5=last5,
+        gradient_rel_err=grad_err)
 
 
 def main() -> int:
@@ -312,9 +758,14 @@ def main() -> int:
     from tpu_splat_torch.ops.cuda.blend import (blend_backward, blend_backward_plain,
                                                 blend_forward, blend_forward_plain,
                                                 pack_features_bf16, unpack_features)
+    from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
+                                                      gut_blend_backward_plain,
+                                                      gut_blend_forward,
+                                                      gut_blend_forward_plain)
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
                                                  expand_emission, expand_emission_plain,
-                                                 feature_table, segsum_emission,
+                                                 feature_table, segred_prefix,
+                                                 segred_prefix_plain, segsum_emission,
                                                  segsum_emission_plain)
     from tpu_splat_torch.ops.projection import project
     from tpu_splat_torch.ops.rasterize import (blend_inputs, blend_instances, compose_output,
@@ -331,7 +782,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
-    counted = (expand_emission, blend_forward, blend_backward, segsum_emission)
+    counted = (expand_emission, blend_forward, blend_backward, segsum_emission,
+               gut_blend_forward, gut_blend_backward, segred_prefix)
     render_kernels = ("expand_emission", "blend_forward")  # the render path's two
 
     # -- build every kernel of the path from the checkout's sources
@@ -390,6 +842,59 @@ def main() -> int:
                                  *k4_args, "K4 random runs")
     phase("k4-random", max_abs_err=k4_random_err, runs=int(run_len.size),
           empty_runs=int((run_len == 0).sum()), longest_run=int(run_len.max()))
+
+    # -- K4 with 17 rows and K7 (10 and 17 rows) on the same runs: ranks as K1 leaves them,
+    # the slots past the last run repeating the last owner
+    last_owner = int(np.nonzero(run_len)[0][-1])
+    run_rank = torch.from_numpy(np.concatenate([
+        np.repeat(np.arange(run_len.size, dtype=np.int32), run_len),
+        np.full(1000, last_owner, np.int32)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k7_random_err = 0.0
+    for n_rows in (10, 17):
+        rows_r = torch.randn((n_rows, run_rank.shape[0]), device=dev, generator=gen)
+        # magnitudes over eleven decades, as gradient rows have
+        rows_r *= torch.pow(10.0, torch.randint(-8, 3, (1, run_rank.shape[0]), device=dev,
+                                                generator=gen).float())
+        got = segred_prefix(rows_r, run_rank)
+        want = segred_prefix_plain(rows_r, run_rank)
+        k7_random_err = max(k7_random_err, check_prefix(got, want, rows_r, run_rank,
+                                                        f"K7 random runs, {n_rows} rows"))
+    k4_17_args = (rows_r, *k4_args[1:])
+    k4_17_random_err = check_segsum(segsum_emission(*k4_17_args),
+                                    segsum_emission_plain(*k4_17_args), *k4_17_args,
+                                    "K4 random runs, 17 rows")
+    phase("k7-random", max_abs_err=k7_random_err, k4_17_rows_max_abs_err=k4_17_random_err,
+          slots=int(run_rank.shape[0]), longest_run=int(run_len.max()))
+    del rows_r, got, want, k4_17_args
+
+    # -- K5 and K6 against their plain versions on random unaligned segments, rays 4 and 8
+    # wide (8: per-pixel origin offsets)
+    k5_random_err = k6_random_err = 0.0
+    for ts, ch, seed in ((16, 128, 11), (32, 256, 12)):
+        for ray_width in (4, 8):
+            args, kw = random_gut_segments(ts, ch, seed, dev, ray_width)
+            fwd = gut_blend_forward(*args, **kw)
+            fwd_plain = gut_blend_forward_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = check_blend(fwd, fwd_plain, f"K5 random tile {ts} chunk {ch} rays {ray_width}")
+            n_chunks = (args[3] + ch - 1) // ch
+            visited = torch.arange(kw["max_chunks"], device=dev) < n_chunks[:, None, None]
+            stopped = float(((fwd_plain[1] == 0) & visited).any(-1).float().mean())
+            gout = 0.3 * torch.randn(fwd[0].shape, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(seed))
+            owned = torch.zeros(args[0].shape[1], dtype=torch.bool, device=dev)
+            for s0, c in zip(args[2].tolist(), args[3].tolist()):
+                owned[s0:s0 + c] = True
+            gflat = gut_blend_backward(*args, fwd[1], fwd[0], gout, **kw)
+            gflat_plain = gut_blend_backward_plain(*args, fwd[1], fwd[0], gout, **kw)
+            torch.cuda.synchronize()
+            rel = check_blend_bwd(gflat, gflat_plain, owned,
+                                  f"K6 random {ts}/{ch} rays {ray_width}")
+            k5_random_err, k6_random_err = max(k5_random_err, err), max(k6_random_err, rel)
+            phase(f"k5-k6-random-{ts}-{ch}-rays{ray_width}", k5_max_abs_err=err,
+                  k6_rel_err=rel, stopped_pixel_share=stopped)
+    del fwd, fwd_plain, gflat, gflat_plain, gout
 
     # -- the main path: render_view of the full-width scene
     params, focal = build_workload(N_GAUSS, WIDTH, HEIGHT)
@@ -565,8 +1070,9 @@ def main() -> int:
     losses = [float(st.loss) for st in stats]
     totals = [int(st.total_instances) for st in stats]
     ktiles = [int(st.max_tile_count) for st in stats]
-    require(all(v == TRAIN_STEPS for v in train_launches.values()),
-            f"each kernel must launch once a step: {train_launches}")
+    require(all(train_launches[fn.__name__] == (TRAIN_STEPS if fn in counted[:4] else 0)
+                for fn in counted),
+            f"K1-K4 must launch once a step and no GUT kernel: {train_launches}")
     require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
             ("overflow", max(totals), max(ktiles), plan))
     require(all(math.isfinite(v) for v in losses), "non-finite loss")
@@ -671,17 +1177,13 @@ def main() -> int:
     k3_ops = K2_OPS_PER_PAIR * pairs_t + K3_OPS_PER_USED_PAIR * used_t
     k4_bytes = 40 * n_slots_t + 48 * N_GAUSS
 
-    def bound(n_bytes, n_ops):
-        by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
-        return max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
-
     for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
         ("blend_fwd_bf16", "blend_fwd.cu", "blend.py:370", "blend_forward", k2b_err, k2b_ms,
-         k2b_plain_ms, bound(k2b_bytes, K2_OPS_PER_PAIR * pairs_t), None),
+         k2b_plain_ms, bound_ms(k2b_bytes, K2_OPS_PER_PAIR * pairs_t), None),
         ("blend_bwd", "blend_bwd.cu", "blend.py:564", "blend_backward", k3_err, k3_ms,
-         k3_plain_ms, bound(k3_bytes, k3_ops), None),
+         k3_plain_ms, bound_ms(k3_bytes, k3_ops), None),
         ("segsum", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
-         k4_plain_ms, bound(k4_bytes, 10 * n_slots_t), k4_lib_ms),
+         k4_plain_ms, bound_ms(k4_bytes, 10 * n_slots_t), k4_lib_ms),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}",
@@ -758,9 +1260,18 @@ def main() -> int:
         loss_first5=first5, loss_last5=last5, refine=refine_info,
         gradient_rel_err=grad_err)
 
+    # ======================= the GUT camera path =======================
+    del ts, sp, splat, ts0, target, target_t, leaves, grads, new_params
+    torch.cuda.empty_cache()
+    gut = gut_phases(params, focal, dev, counted, kernels)
+    gut.update(k5_random_max_abs_err=k5_random_err, k6_random_rel_err=k6_random_err,
+               k7_random_max_abs_err=k7_random_err,
+               k4_17_random_max_abs_err=k4_17_random_err)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"gut": gut}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device-time breakdown of the port's render path, or train step, on one CUDA card.
 
-    python3 profile_render.py [--train] [--frames 3] [--trace PATH]
+    python3 profile_render.py [--train | --gut] [--frames 3] [--trace PATH]
 
 Renders chip_smoke.py's scene (1,000,000 Gaussians, SH degree 3, 1296x840, seed 0)
 through `render_view` under torch.profiler, after two warm-up frames, and prints:
@@ -9,7 +9,10 @@ the card (nvidia-smi name and power limit); the kernels ranked by device time pe
 frame; one JSON line with frame wall time, summed kernel time per frame and the
 device's idle share of the profiled window. `--trace` also writes a Chrome trace.
 With `--train` a "frame" is one MCMC `train_step` of chip_smoke.py's training workload
-(tile 32, chunk 256, bf16 pack, the plan sized from a probe step).
+(tile 32, chunk 256, bf16 pack, the plan sized from a probe step). With `--gut` it is one
+GUT `train_step` of chip_smoke.py's GUT workload (`StepConfig(gut=True)`, a pinhole with
+radial distortion 0.05, tile 32, chunk 128), and the camera-only work of a step (the
+20-iteration undistortion of every pixel's ray) and the UT projection are also timed alone.
 """
 
 from __future__ import annotations
@@ -24,10 +27,36 @@ import time
 import numpy as np
 
 
+def gut_stage_times(splat, cam, cam_params, plan) -> dict:
+    """CUDA-event times (ms, medians of 5) of the two stages of a GUT step that no kernel
+    of the port covers: the UT projection of every Gaussian's seven sigma points, and the
+    per-pixel world rays (20 undistortion iterations a pixel), which depend on the camera
+    alone."""
+    import torch
+
+    from chip_smoke import HEIGHT, WIDTH, cuda_ms
+    from tpu_splat_torch.ops.gut import pixel_world_rays, ut_project
+
+    dev = splat.means.device
+    w2c, pos = torch.as_tensor(cam[0], device=dev), torch.zeros(3, device=dev)
+    ts = plan.tile_size
+    grid = dict(grid_w=-(-WIDTH // ts), grid_h=-(-HEIGHT // ts), tile_size=ts, width=WIDTH,
+                height=HEIGHT)
+    return dict(
+        ut_project_ms=cuda_ms(lambda: ut_project(
+            splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw,
+            splat.alive, w2c, *cam[2:], cam_params, WIDTH, HEIGHT, ts, None), 5),
+        pixel_rays_ms=cuda_ms(lambda: pixel_world_rays(
+            w2c, pos, *cam[2:], cam_params, None, None, **grid), 5),
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--train", action="store_true", help="profile train steps, not frames")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true", help="profile train steps, not frames")
+    mode.add_argument("--gut", action="store_true", help="profile GUT train steps")
     ap.add_argument("--trace", help="write a Chrome trace of the profiled frames here")
     args = ap.parse_args(argv)
 
@@ -54,10 +83,18 @@ def main(argv: list[str] | None = None) -> int:
     w2c = np.eye(4, dtype=np.float32)
     fov = math.degrees(2 * math.atan(0.5 * WIDTH / focal))
 
-    if args.train:
+    extra = {}
+    if args.train or args.gut:
         del state
-        ts, target, cam, bg, plan, step_kw = train_setup(params, focal, dev)
+        cam_params = None
+        if args.gut:
+            from tpu_splat_torch.ops.cameras import CameraParams
+
+            cam_params = CameraParams(radial=(0.05, 0.0, 0.0, 0.0, 0.0, 0.0))
+        ts, target, cam, bg, plan, step_kw = train_setup(params, focal, dev, cam_params)
         print(f"plan: {plan}", flush=True)
+        if args.gut:
+            extra = gut_stage_times(ts.splat, cam, cam_params, plan)
 
         def frame():
             nonlocal ts
@@ -93,10 +130,11 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{sum(times) / args.frames:9.3f} {sum(times) / busy_ms:6.1%} "
               f"{len(times) / args.frames:11.1f}  {name[:110]}")
     print(json.dumps(dict(
-        mode="train" if args.train else "render", frames=args.frames, frame_wall_ms=wall_ms / args.frames,
+        mode="gut" if args.gut else "train" if args.train else "render", frames=args.frames,
+        frame_wall_ms=wall_ms / args.frames,
         kernel_ms_per_frame=busy_ms / args.frames,
         kernels_per_frame=len(kernels) / args.frames,
-        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms), **extra,
     )), flush=True)
     return 0
 

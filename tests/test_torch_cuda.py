@@ -10,6 +10,10 @@ in both layouts (rtol 1e-5 on the accumulated depth); K3 max abs error <= 1e-4 o
 largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
 order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
 running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds);
+K5 as K2 and K6 as K3, for rays 4 and 8 wide (a decision mismatch would show as a whole
+instance's colour, far above 1e-5); K7 rtol 1e-5 plus 1e-5 of the prefix of the rows'
+absolute values over the same run (a shuffle tree and a fold of block carries against
+masked shifted adds: only the order of float32 adds differs);
 the train step through the kernels against the same step through the plain versions:
 loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
 move a parameter by lr * sign(g) where |g| is tiny, so a rounding-level difference in a
@@ -24,12 +28,17 @@ from tpu_splat_torch.convert import splat_from_numpy
 from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backward_plain,
                                             blend_forward, blend_forward_plain,
                                             pack_features_bf16)
+from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
+                                                  gut_blend_backward_plain,
+                                                  gut_blend_forward, gut_blend_forward_plain)
+from tpu_splat_torch.ops.cameras import CameraParams
 from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_plain,
+                                             segred_prefix, segred_prefix_plain,
                                              segsum_emission, segsum_emission_plain)
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
-from chip_smoke import random_segments
+from chip_smoke import random_gut_segments, random_segments
 from torch_fixtures import blend_fixture, emission_runs
 
 
@@ -97,12 +106,74 @@ def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout):
 
 
 @pytest.mark.cuda
-def test_segsum_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("ray_width", [4, 8])
+@pytest.mark.parametrize("tile_size,chunk", [(16, 128), (32, 128), (32, 256)])
+def test_gut_blend_kernels_match_plain_on_card(tile_size, chunk, ray_width):
+    _require_cuda()
+    dev = torch.device("cuda")
+    (flat, rays, seg_start, count), kw = random_gut_segments(tile_size, chunk, 11, dev,
+                                                             ray_width)
+    args = (flat, rays, seg_start, count)
+    out, chk = gut_blend_forward(*args, **kw)
+    want_out, want_chk = gut_blend_forward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[..., :4], want_out[..., :4], rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[..., 4:], want_out[..., 4:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
+    assert float((chk == 0).float().mean()) > 0.05  # pixels stopped early
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gout = 0.3 * torch.randn(out.shape, device=dev, generator=gen)
+    got = gut_blend_backward(*args, chk, out, gout, **kw)
+    want = gut_blend_backward_plain(*args, chk, out, gout, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    owned = torch.zeros(flat.shape[1], dtype=torch.bool, device=dev)
+    for s0, c in zip(seg_start.tolist(), count.tolist()):
+        owned[s0:s0 + c] = True
+    assert bool((got[:, ~owned] == 0).all()) and int((~owned).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [10, 17])
+def test_segprefix_kernel_matches_plain_on_card(n_rows):
+    _require_cuda()
+    dev = torch.device("cuda")
+    counts, _, _, total = emission_runs(seed=6, n=50_000, long_run=120_000)
+    n = len(counts)
+    last_owner = int(np.nonzero(counts)[0][-1])
+    rank = np.concatenate([np.repeat(np.arange(n, dtype=np.int32), counts),
+                           np.full(3000, last_owner, np.int32)])  # the tail convention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randn((n_rows, rank.size), device=dev, generator=gen)
+    rows *= torch.pow(10.0, torch.randint(-8, 3, (1, rank.size), device=dev, generator=gen))
+    rank_t = torch.from_numpy(rank).to(dev)
+    got = segred_prefix(rows, rank_t)
+    want = segred_prefix_plain(rows, rank_t)
+    magnitude = segred_prefix_plain(rows.abs(), rank_t)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * magnitude).all())
+    heads = torch.from_numpy(np.concatenate([[True], rank[1:] != rank[:-1]])).to(dev)
+    assert torch.equal(got[:, heads], rows[:, heads])  # a run head holds its own row
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_on_mixed_devices_on_card():
+    _require_cuda()
+    (flat, rays, seg_start, count), kw = random_gut_segments(16, 128, 1, "cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        gut_blend_forward(flat, rays.cpu(), seg_start, count, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        segred_prefix(flat, torch.zeros(flat.shape[1], dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [NFEAT, 17])
+def test_segsum_kernel_matches_plain_on_card(n_rows):
     _require_cuda()
     dev = torch.device("cuda")
     counts, start, end, total = emission_runs(seed=4, n=50_000, long_run=40_000)
     gen = torch.Generator(device=dev).manual_seed(5)
-    rows = torch.randn((NFEAT, total + 1000), device=dev, generator=gen)
+    rows = torch.randn((n_rows, total + 1000), device=dev, generator=gen)
     args = (rows, torch.from_numpy(start).to(dev), torch.from_numpy(end).to(dev))
     got = segsum_emission(*args)
     want = segsum_emission_plain(*args)
@@ -113,9 +184,11 @@ def test_segsum_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pack_bf16", [False, True])
-def test_train_step_through_kernels_matches_plain_on_card(pack_bf16):
+@pytest.mark.parametrize("mode", ["f32", "bf16", "gut-segsum", "gut-prefix"])
+def test_train_step_through_kernels_matches_plain_on_card(mode):
     _require_cuda()
+    pack_bf16 = mode == "bf16"
+    gut = mode.startswith("gut")
     rng = np.random.default_rng(0)
     n, cap, size = 3000, 4096, 128
     pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
@@ -135,8 +208,10 @@ def test_train_step_through_kernels_matches_plain_on_card(pack_bf16):
                       pack_bf16=pack_bf16)
     args = (gt, np.eye(4, dtype=np.float32), np.zeros(3, np.float32), f, f, size / 2,
             size / 2, np.zeros(3, np.float32))
-    kw = dict(width=size, height=size, plan=plan, opt=StepConfig(), total_iterations=100,
-              noise=rng.normal(0, 1, (cap, 3)).astype(np.float32))
+    opt = StepConfig(gut=gut, cam_params=CameraParams(radial=(0.05, 0, 0, 0, 0, 0)))
+    kw = dict(width=size, height=size, plan=plan, opt=opt, total_iterations=100,
+              noise=rng.normal(0, 1, (cap, 3)).astype(np.float32),
+              segred_impl="prefix" if mode == "gut-prefix" else "segsum")
     results = []
     for impl in ("kernel", "plain"):
         ts = init_train_state(splat, seed=1)

@@ -158,6 +158,8 @@ def test_port_imports_no_jax():
         "import sys, tpu_splat_torch, tpu_splat_torch.cli, tpu_splat_torch.render\n"
         "import tpu_splat_torch.convert, tpu_splat_torch.ops.ssim\n"
         "import tpu_splat_torch.ops.cuda.blend, tpu_splat_torch.ops.cuda.raster\n"
+        "import tpu_splat_torch.ops.cameras, tpu_splat_torch.ops.gut\n"
+        "import tpu_splat_torch.ops.cuda.gut_kernels, tpu_splat_torch.ops.cuda.build\n"
         "from tpu_splat_torch.training import losses, optim, strategy_mcmc, train_step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_splat'))\n"
         "assert not bad, bad\n"

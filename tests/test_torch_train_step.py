@@ -170,7 +170,8 @@ def test_train_step_many_is_the_loop_of_train_step():
     assert ts_b.iteration == 3 and losses[1] != losses[0]
 
 
-@pytest.mark.parametrize("setting", [dict(strategy="default"), dict(gut=True),
+@pytest.mark.parametrize("setting", [dict(strategy="default"),
+                                     dict(gut=True, pose_optimization="direct"),
                                      dict(use_bilateral_grid=True),
                                      dict(pose_optimization="direct"),
                                      dict(enable_sparsity=True)])

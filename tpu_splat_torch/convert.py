@@ -14,6 +14,7 @@ import torch
 
 from .core.splat import PARAM_FIELDS, SplatState
 from .device import resolve_device
+from .ops.cameras import CameraParams
 from .training.optim import AdamState
 from .training.train_step import TrainState
 
@@ -85,3 +86,14 @@ def train_state_to_numpy(ts: TrainState) -> dict:
                 exp_avg_sq=moments(ts.adam.exp_avg_sq), step_count=dict(ts.adam.step_count),
                 iteration=ts.iteration, max_sh_degree=degree,
                 scene_scale=ts.splat.scene_scale)
+
+
+def camera_params_from_numpy(model: str, shutter: str, coeffs: np.ndarray) -> CameraParams:
+    """A static CameraParams from a camera model, a shutter type and the 12 distortion
+    coefficients (radial6 | tangential2 | thin-prism4): the inverse of
+    `CameraParams.coeff_vector`."""
+    c = tuple(float(v) for v in np.asarray(coeffs, np.float32).reshape(-1))
+    if len(c) != 12:
+        raise ValueError(f"expected 12 distortion coefficients, got {len(c)}")
+    return CameraParams(model=model, radial=c[0:6], tangential=c[6:8], thin_prism=c[8:12],
+                        shutter=shutter)

@@ -3,10 +3,11 @@
 // Replaces: tpu_splat/ops/pallas/raster.py::_segsum_kernel (wrapper segsum_emission).
 //
 // Emission order is Gaussian-id order: Gaussian g owns the contiguous run of emission
-// slots [start[g], end[g]). For the ten gradient features f,
+// slots [start[g], end[g]). For the F gradient features f (F = 10 on the pinhole path,
+// 17 on the GUT path),
 //   out[f, g] = sum over e in [start[g], end[g]) of rows[f, e],   0 for an empty run.
 //
-// Bound on the H100: bytes. Every owned slot's ten floats are read once, ten floats a
+// Bound on the H100: bytes. Every owned slot's F floats are read once, F floats a
 // Gaussian are written, plus the two run bounds; one add per value read.
 //
 // Design: one thread per Gaussian walks its own run, feature by feature. Neighbouring
@@ -23,10 +24,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFeat = 10;
 constexpr int kLongRun = 64;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+template <int kFeat>
 __global__ void __launch_bounds__(kThreads) segsum_kernel(
     const float* __restrict__ rows, long long rstride, int n_slots,  // [kFeat, rstride]
     const int* __restrict__ start, const int* __restrict__ end, int n,  // [n]
@@ -69,12 +70,19 @@ __global__ void __launch_bounds__(kThreads) segsum_kernel(
 
 }  // namespace
 
-extern "C" int tpu_splat_segsum(const float* rows, long long rstride, int n_slots,
+extern "C" int tpu_splat_segsum(const float* rows, int nfeat, long long rstride, int n_slots,
                                 const int* start, const int* end, int n, float* out,
                                 long long ostride, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  segsum_kernel<<<blocks, kThreads, 0, stream>>>(rows, rstride, n_slots, start, end, n, out,
-                                                 ostride);
+  if (nfeat == 10) {
+    segsum_kernel<10><<<blocks, kThreads, 0, stream>>>(rows, rstride, n_slots, start, end, n,
+                                                       out, ostride);
+  } else if (nfeat == 17) {
+    segsum_kernel<17><<<blocks, kThreads, 0, stream>>>(rows, rstride, n_slots, start, end, n,
+                                                       out, ostride);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -93,8 +93,9 @@ def tile_pixel_centers(n_tiles: int, grid_w: int, tile_size: int, dev, first_til
     return px, py
 
 
-def _tile_batches(n_tiles: int, tile_size: int, chunk: int):
-    step = max(1, _PLAIN_BATCH_ELEMS // (chunk * tile_size * tile_size))
+def _tile_batches(n_tiles: int, tile_size: int, chunk: int, elems: int = _PLAIN_BATCH_ELEMS):
+    """Tile ranges [t0, t1) whose [tiles, chunk, P] temporaries hold at most `elems`."""
+    step = max(1, elems // (chunk * tile_size * tile_size))
     return [(t0, min(t0 + step, n_tiles)) for t0 in range(0, n_tiles, step)]
 
 
@@ -115,6 +116,26 @@ def _chunk_alphas(feat, seg_start, count, j, chunk, px, py):
     valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
     a = torch.where(valid, alpha, 0.0)
     return f, idx, lane_valid, dx, dy, gauss, a, valid
+
+
+def composite_chunk(a, valid, t_run, dead):
+    """One chunk of front-to-back compositing, closed form along the instance axis.
+
+    a [T, C, P] alphas (0 where invalid), valid [T, C, P], t_run [T, P] the entry
+    transmittance, dead [T, P] pixels that have stopped. The stop fires before the first
+    valid instance whose inclusive transmittance falls under the threshold.
+    -> (w [T, C, P] blend weights, t_run and dead after the chunk)."""
+    one_m = 1.0 - a
+    cp_incl = torch.cumprod(one_m, dim=1)
+    t_incl = t_run[:, None, :] * cp_incl
+    below = t_incl < TRANSMITTANCE_THRESHOLD  # monotone along the chunk
+    alive = ~dead
+    use = valid & ~below & alive[:, None, :]
+    t_excl = t_run[:, None, :] * (cp_incl / one_m)  # one_m >= 1e-3: safe
+    w = torch.where(use, a * t_excl, 0.0)
+    # T after the last accepted instance: the smallest not-yet-stopped T_incl
+    t_cand = torch.where(below, t_run[:, None, :], t_incl).amin(dim=1)
+    return w, torch.where(alive, t_cand, t_run), dead | (valid & below).any(dim=1)
 
 
 @torch.no_grad()
@@ -144,20 +165,9 @@ def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: in
             chk[:, :, j] = torch.where(dead | (j >= nch)[:, None], 0.0, t_run)
             f, _, _, _, _, _, a, valid = _chunk_alphas(feat, start, count, j, chunk, px, py)
 
-            one_m = 1.0 - a
-            cp_incl = torch.cumprod(one_m, dim=1)
-            t_incl = t_run[:, None, :] * cp_incl
-            below = t_incl < TRANSMITTANCE_THRESHOLD  # monotone along the chunk
-            alive = ~dead
-            use = valid & ~below & alive[:, None, :]
-            t_excl = t_run[:, None, :] * (cp_incl / one_m)  # one_m >= 1e-3: safe
-            w = torch.where(use, a * t_excl, 0.0)
+            w, t_run, dead = composite_chunk(a, valid, t_run, dead)
             feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
             acc = acc + torch.einsum("tcp,tck->tpk", w, feat4)
-            # T after the last accepted instance: the smallest not-yet-stopped T_incl
-            t_cand = torch.where(below, t_run[:, None, :], t_incl).amin(dim=1)
-            t_run = torch.where(alive, t_cand, t_run)
-            dead = dead | (valid & below).any(dim=1)
 
         zeros = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
         outs.append(torch.cat([acc[:, :, :3], t_run[:, :, None], acc[:, :, 3:], zeros], dim=2))

@@ -1,5 +1,5 @@
 """Instance pipeline: expansion (kernel K1), exact contribution test, tile|depth sort,
-and the per-Gaussian sum of emission-order gradient rows (kernel K4).
+and the per-Gaussian reduction of per-instance gradient rows (kernels K4 and K7).
 
 Counterpart of `tpu_splat/ops/pallas/raster.py::build_sorted_instances`. Emission stays
 in Gaussian-id order: Gaussian g owns emission slots [offs_excl[g], offs_incl[g]), one
@@ -13,7 +13,12 @@ K1 `expand_emission` launches `csrc/expand.cu` on a CUDA tensor and runs its pla
 version, `expand_emission_plain`, on a CPU tensor. K4 `segsum_emission` (counterpart of
 `tpu_splat/ops/pallas/raster.py::segsum_emission`) does the same with `csrc/segsum.cu` and
 `segsum_emission_plain`: the backward of the feature pack, which sums each Gaussian's
-contiguous run of emission-order gradient rows.
+contiguous run of emission-order gradient rows (10 rows on the pinhole path, 17 on the GUT
+path). K7 `segred_prefix` (counterpart of `segred_prefix_pallas`, `csrc/segprefix.cu`,
+`segred_prefix_plain`) is the segmented inclusive prefix over the same runs.
+`segmented_grad_reduce` (counterpart of the JAX function of that name) turns tile-sorted
+per-instance rows into per-Gaussian totals through either of them, chosen by its `impl`
+argument.
 """
 
 from __future__ import annotations
@@ -218,10 +223,17 @@ def build_sorted_instances(
     )
 
 
+ROW_COUNTS = (NFEAT, 17)  # gradient rows of the pinhole blend and of the GUT blend
+
+
+def _check_rows(rows):
+    if rows.dim() != 2 or rows.shape[0] not in ROW_COUNTS or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be float32 [{ROW_COUNTS[0]} or {ROW_COUNTS[1]}, M], "
+                         f"got {rows.dtype} {tuple(rows.shape)}")
+
+
 def _check_segsum_inputs(rows, emis_start, emis_end):
-    if rows.dim() != 2 or rows.shape[0] != NFEAT or rows.dtype != torch.float32:
-        raise ValueError(f"rows must be float32 [{NFEAT}, M], got {rows.dtype} "
-                         f"{tuple(rows.shape)}")
+    _check_rows(rows)
     n = emis_start.shape[0]
     for name, x in (("emis_start", emis_start), ("emis_end", emis_end)):
         if x.shape != (n,) or x.dtype != torch.int32:
@@ -240,14 +252,15 @@ def segsum_emission_plain(rows, emis_start, emis_end):
     gradient magnitudes span more than ten decades, and a small run's sum drowns in the
     rounding of a large prefix.)
 
-    -> [NFEAT, N] float32, out[f, g] = sum of rows[f, emis_start[g]:emis_end[g]]."""
+    -> [F, N] float32, out[f, g] = sum of rows[f, emis_start[g]:emis_end[g]]."""
     _check_segsum_inputs(rows, emis_start, emis_end)
     m = rows.shape[1]
     end = emis_end.long().clamp(0, m)
     start = torch.minimum(emis_start.long().clamp_min(0), end)
     length = end - start
     short = length <= LONG_RUN
-    out = torch.zeros((NFEAT, start.shape[0]), dtype=torch.float32, device=rows.device)
+    out = torch.zeros((rows.shape[0], start.shape[0]), dtype=torch.float32,
+                      device=rows.device)
     if m == 0 or start.shape[0] == 0:
         return out
     n_steps = int(torch.where(short, length, 0).max())
@@ -264,16 +277,16 @@ def segsum_emission(rows, emis_start, emis_end):
     CUDA tensors launch `csrc/segsum.cu` (one thread per Gaussian, a warp per long run)
     or raise.
 
-    rows [NFEAT, M] float32 in emission order; Gaussian g owns slots
-    [emis_start[g], emis_end[g]). -> [NFEAT, N] float32, zero for an empty run."""
+    rows [F, M] float32 in emission order, F = 10 or 17; Gaussian g owns slots
+    [emis_start[g], emis_end[g]). -> [F, N] float32, zero for an empty run."""
     if rows.device.type == "cpu":
         return segsum_emission_plain(rows, emis_start, emis_end)
     _check_segsum_inputs(rows, emis_start, emis_end)
     require_cuda(rows, rows=rows, emis_start=emis_start, emis_end=emis_end)
     n = emis_start.shape[0]
-    out = torch.empty((NFEAT, n), dtype=torch.float32, device=rows.device)
+    out = torch.empty((rows.shape[0], n), dtype=torch.float32, device=rows.device)
     err = kernel("segsum")(
-        rows.data_ptr(), rows.stride(0), rows.shape[1], emis_start.data_ptr(),
+        rows.data_ptr(), rows.shape[0], rows.stride(0), rows.shape[1], emis_start.data_ptr(),
         emis_end.data_ptr(), n, out.data_ptr(), out.stride(0),
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
@@ -285,6 +298,116 @@ def segsum_emission(rows, emis_start, emis_end):
 segsum_emission.launches = 0
 
 
-__all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_tables",
-           "expand_emission", "expand_emission_plain", "feature_table", "segsum_emission",
-           "segsum_emission_plain"]
+def _run_ids(rank):
+    """[M] int64 run index of each slot: slots i-1 and i share a run iff their ranks are
+    equal (runs are contiguous)."""
+    head = torch.ones_like(rank, dtype=torch.bool)
+    head[1:] = rank[1:] != rank[:-1]
+    return torch.cumsum(head, 0) - 1
+
+
+def _check_prefix_inputs(rows, rank):
+    _check_rows(rows)
+    if rank.shape != (rows.shape[1],) or rank.dtype != torch.int32:
+        raise ValueError(f"rank must be int32 [{rows.shape[1]}], got {rank.dtype} "
+                         f"{tuple(rank.shape)}")
+
+
+@torch.no_grad()
+def segred_prefix_plain(rows, rank):
+    """Plain version of K7: a Hillis-Steele segmented scan over the whole slot axis,
+    ceil(log2(longest run)) passes of masked shifted adds; every run restarts at its
+    head. (Differences of one long cumsum would not do: gradient magnitudes span more than
+    ten decades and a small run's prefix drowns in the rounding of a large one.)
+
+    -> [F, M] float32, x[f, i] = sum of rows[f, j] over j <= i in the run of i."""
+    _check_prefix_inputs(rows, rank)
+    x = rows.clone()
+    if rows.shape[1] == 0:
+        return x
+    rid = _run_ids(rank)
+    longest = int(torch.bincount(rid).max())
+    step = 1
+    while step < longest:
+        same = rid[step:] == rid[:-step]
+        x = torch.cat([x[:, :step], x[:, step:] + torch.where(same, x[:, :-step], 0.0)],
+                      dim=1)
+        step *= 2
+    return x
+
+
+PREFIX_TILE = 1024  # slots per block of the first pass (csrc/segprefix.cu kTile)
+
+
+def segred_prefix(rows, rank):
+    """K7: segmented inclusive prefix over contiguous equal-rank runs. CPU tensors run the
+    plain version; CUDA tensors launch `csrc/segprefix.cu` or raise. The library makes
+    three launches (block-local scans, a scan of the blocks' carries, the carry add); they
+    count as one kernel call.
+
+    rows [F, M] float32 in emission order, F = 10 or 17; rank [M] int32.
+    -> [F, M] float32, x[f, i] = sum of rows[f, j] over j <= i in the run of i."""
+    if rows.device.type == "cpu":
+        return segred_prefix_plain(rows, rank)
+    _check_prefix_inputs(rows, rank)
+    require_cuda(rows, rows=rows, rank=rank)
+    m = rows.shape[1]
+    nb = -(-m // PREFIX_TILE)
+    out = torch.empty_like(rows)
+    # per-block scratch: the trailing run's sums before and after the carry scan, the
+    # number of slots before the block's first run head, whether it has a head at all
+    agg = torch.empty((2, rows.shape[0], max(nb, 1)), dtype=torch.float32, device=rows.device)
+    first_len = torch.empty((2, max(nb, 1)), dtype=torch.int32, device=rows.device)
+    err = kernel("segprefix")(
+        rows.data_ptr(), rows.shape[0], rows.stride(0), m, rank.data_ptr(), out.data_ptr(),
+        agg.data_ptr(), first_len.data_ptr(), nb,
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    check(err, "segprefix")
+    segred_prefix.launches += 1
+    return out
+
+
+segred_prefix.launches = 0
+
+
+def emission_order(gflat: torch.Tensor, sorted_emis: torch.Tensor) -> torch.Tensor:
+    """Per-instance rows [F, M] in tile-sorted order -> emission order: column
+    sorted_emis[c] of the result is column c of `gflat` (sorted_emis is a permutation of
+    the M slots). Slots that failed the contribution test sorted to the unowned tail, so
+    they receive the backward kernel's zero columns."""
+    rows = torch.empty_like(gflat)
+    rows.index_copy_(1, sorted_emis.long(), gflat)
+    return rows
+
+
+SEGRED_IMPLS = ("segsum", "prefix")
+
+
+def segmented_grad_reduce(gflat, inst: SortedInstances, impl: str = "segsum",
+                          kernels: bool = True):
+    """Per-Gaussian gradient totals [F, N] from tile-sorted per-instance rows `gflat`
+    [F, M]: gather to emission order (each Gaussian's slots contiguous, in id order), then
+    one of two lanes, named by `impl`:
+
+      "segsum" (default): K4, the sum of each Gaussian's run;
+      "prefix": K7, the segmented inclusive prefix, read at each run's last slot,
+        x[:, emis_end - 1] * (emis_end > emis_start). A prefix and not a run total because
+        the slots past the last emitted one repeat the last owner's rank.
+
+    `kernels=False` runs the plain versions on any device."""
+    if impl not in SEGRED_IMPLS:
+        raise ValueError(f"impl must be one of {SEGRED_IMPLS}, got {impl!r}")
+    rows = emission_order(gflat, inst.sorted_emis)
+    if impl == "segsum":
+        fn = segsum_emission if kernels else segsum_emission_plain
+        return fn(rows, inst.emis_start, inst.emis_end)
+    x = (segred_prefix if kernels else segred_prefix_plain)(rows, inst.emis_rank)
+    last = (inst.emis_end.long() - 1).clamp(0, max(rows.shape[1] - 1, 0))
+    return x.index_select(1, last) * (inst.emis_end > inst.emis_start)
+
+
+__all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_order",
+           "emission_tables", "expand_emission", "expand_emission_plain", "feature_table",
+           "segmented_grad_reduce", "segred_prefix", "segred_prefix_plain",
+           "segsum_emission", "segsum_emission_plain"]

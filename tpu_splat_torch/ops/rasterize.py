@@ -29,8 +29,8 @@ import torch
 from ..device import resolve_device
 from .cuda.blend import (blend_backward, blend_backward_plain, blend_forward,
                          blend_forward_plain, pack_features_bf16)
-from .cuda.raster import (SortedInstances, build_sorted_instances, feature_table,
-                          segsum_emission, segsum_emission_plain)
+from .cuda.raster import (SortedInstances, build_sorted_instances, emission_order,
+                          feature_table, segsum_emission, segsum_emission_plain)
 from .projection import Projected, project
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB_D", "RGB_ED")
@@ -81,16 +81,6 @@ def blend_inputs(inst: SortedInstances, gtab: torch.Tensor, *, k_max: int, chunk
     flat = table.index_select(1, inst.sorted_gid)
     count_capped = torch.clamp_max(inst.tile_count, max_chunks * chunk)
     return flat, inst.tile_start, count_capped, max_chunks
-
-
-def emission_order(gflat: torch.Tensor, sorted_emis: torch.Tensor) -> torch.Tensor:
-    """Per-instance rows [F, M] in tile-sorted order -> emission order: column
-    sorted_emis[c] of the result is column c of `gflat` (sorted_emis is a permutation of
-    the M slots). Slots that failed the contribution test sorted to the unowned tail, so
-    they receive K3's zero columns."""
-    rows = torch.empty_like(gflat)
-    rows.index_copy_(1, sorted_emis.long(), gflat)
-    return rows
 
 
 class BlendTiles(torch.autograd.Function):

@@ -9,9 +9,10 @@ The whole step is static-shape: capacity-C parameter tensors, instance budget / 
 capacity from a host-managed `RasterPlan`; the step reports the actual counts (as device
 tensors, without a sync) so the host can grow the plan and redo an overflowing step.
 
-Supported here: `strategy="mcmc"`, the pinhole fast path, no components. Pose
-optimization, the bilateral grid, ADMM sparsity, the ADC strategy and the GUT camera path
-are still to port (ROADMAP.md, Queue 1 items 8-10): asking for one raises
+Supported here: `strategy="mcmc"`, the pinhole fast path or, with `gut=True`, the GUT
+camera path (`ops/gut.py::rasterize_gut`: distorted pinhole, fisheye, ortho, rolling
+shutter), no components. Pose optimization, the bilateral grid, ADMM sparsity and the ADC
+strategy are still to port (ROADMAP.md, Queue 1 items 8-9): asking for one raises
 NotImplementedError, the step never trains something else instead.
 
 State: `TrainState` holds tensors on one device, the iteration and Adam's per-group step
@@ -30,6 +31,8 @@ import torch
 
 from ..core.splat import SplatState
 from ..device import resolve_device
+from ..ops.cameras import CameraParams
+from ..ops.gut import rasterize_gut
 from ..ops.rasterize import rasterize, to_device
 from . import strategy_mcmc
 from .losses import photometric_loss, regularization_losses
@@ -107,11 +110,17 @@ class StepConfig:
     use_bilateral_grid: bool = False
     pose_optimization: str = "none"
     enable_sparsity: bool = False
+    # GUT path (--gut): distorted / fisheye cameras (trainer.cpp:586-597)
     gut: bool = False
+    cam_params: CameraParams = CameraParams()
+    max_angle: float | None = None
 
     @classmethod
     def from_params(cls, p) -> "StepConfig":
-        return cls(**{f.name: getattr(p, f.name) for f in dataclasses.fields(cls)})
+        # the camera model is per dataset, not an optimization parameter: the caller
+        # sets cam_params and max_angle with dataclasses.replace
+        return cls(**{f.name: getattr(p, f.name) for f in dataclasses.fields(cls)
+                      if f.name not in ("cam_params", "max_angle")})
 
 
 _UNSUPPORTED = (
@@ -119,7 +128,6 @@ _UNSUPPORTED = (
     ("use_bilateral_grid", False, "the bilateral grid (ROADMAP.md Queue 1 item 9)"),
     ("pose_optimization", "none", "pose optimization (ROADMAP.md Queue 1 item 9)"),
     ("enable_sparsity", False, "ADMM sparsity (ROADMAP.md Queue 1 item 9)"),
-    ("gut", False, "the GUT camera path (ROADMAP.md Queue 1 item 10)"),
 )
 
 
@@ -143,7 +151,7 @@ def train_step(
     fx, fy, cx, cy,
     bg_color,  # [3]
     cam_idx=0,  # index into the train split (used by the components; unused here)
-    dist=None,  # per-sample distortion coeffs (GUT path; not ported)
+    dist=None,  # [12] per-sample distortion coeffs (GUT path; model stays in opt)
     *,
     width: int,
     height: int,
@@ -152,13 +160,11 @@ def train_step(
     total_iterations: int,
     noise=None,  # [C, 3] standard normal for the MCMC noise; drawn from ts.rng when None
     impl: str = "kernel",  # "plain" runs the kernels' plain versions on any device
+    segred_impl: str = "segsum",  # GUT backward reduction lane: "segsum" (K4) | "prefix" (K7)
 ) -> tuple[TrainState, StepStats]:
     """One training iteration on the state's device. Camera inputs may be numpy arrays
     or tensors."""
     _check_supported(opt)
-    if dist is not None:
-        raise NotImplementedError("dist: the GUT camera path (ROADMAP.md Queue 1 item 10) "
-                                  "is not ported yet")
     splat = ts.splat
     dev = ts.device
     it = ts.iteration
@@ -166,15 +172,23 @@ def train_step(
     gt_image = to_device(gt_image, dev)
 
     params = {k: v.detach().requires_grad_(True) for k, v in splat.params().items()}
-    out = rasterize(
-        params["means"], params["scaling_raw"], params["rotation_raw"],
-        params["opacity_raw"], params["sh0"], params["shN"], splat.alive,
-        w2c, cam_position, fx, fy, cx, cy,
-        sh_deg, bg_color,
-        width=width, height=height,
-        max_instances=plan.max_instances, k_max=plan.k_max, chunk=plan.chunk,
-        tile_size=plan.tile_size, pack_bf16=plan.pack_bf16, device=dev, impl=impl,
-    )
+    scene = (params["means"], params["scaling_raw"], params["rotation_raw"],
+             params["opacity_raw"], params["sh0"], params["shN"], splat.alive,
+             w2c, cam_position, fx, fy, cx, cy, sh_deg, bg_color)
+    if getattr(opt, "gut", False):
+        # pose opt is incompatible with GUT in the reference too (trainer.cpp:371)
+        out = rasterize_gut(
+            *scene, width=width, height=height,
+            max_instances=plan.max_instances, k_max=plan.k_max, tile_size=plan.tile_size,
+            cam_params=opt.cam_params, max_angle=opt.max_angle, dist=dist, device=dev,
+            impl=impl, segred_impl=segred_impl,
+        )
+    else:
+        out = rasterize(
+            *scene, width=width, height=height,
+            max_instances=plan.max_instances, k_max=plan.k_max, chunk=plan.chunk,
+            tile_size=plan.tile_size, pack_bf16=plan.pack_bf16, device=dev, impl=impl,
+        )
     loss = photometric_loss(out.image, gt_image, opt.lambda_dssim)
     loss = loss + regularization_losses(params, splat.alive, opt.scale_reg, opt.opacity_reg)
     names = list(params)
@@ -212,7 +226,7 @@ def train_step_many(
     intrinsics,  # [K, 4] (fx, fy, cx, cy)
     bg_colors,  # [K, 3]
     cam_idxs,  # [K]
-    dists=None,
+    dists=None,  # [K, 12] per-sample distortion coeffs (GUT path)
     *,
     width: int,
     height: int,
@@ -220,20 +234,19 @@ def train_step_many(
     opt: Any,
     total_iterations: int,
     impl: str = "kernel",
+    segred_impl: str = "segsum",
 ) -> tuple[TrainState, StepStats]:
     """K sequential `train_step` calls over stacked camera inputs; the returned stats
     are stacked [K], so the overflow protocol checks `max()` over the stretch. A plain
     host loop: folding the stretch into one CUDA graph is a later optimisation."""
-    if dists is not None:
-        raise NotImplementedError("dists: the GUT camera path (ROADMAP.md Queue 1 item 10) "
-                                  "is not ported yet")
     stats = []
     for i in range(len(gt_images)):
         fx, fy, cx, cy = (float(v) for v in intrinsics[i])
         ts, st = train_step(
             ts, gt_images[i], w2cs[i], cam_positions[i], fx, fy, cx, cy, bg_colors[i],
-            int(cam_idxs[i]), width=width, height=height, plan=plan, opt=opt,
-            total_iterations=total_iterations, impl=impl,
+            int(cam_idxs[i]), None if dists is None else dists[i], width=width,
+            height=height, plan=plan, opt=opt, total_iterations=total_iterations, impl=impl,
+            segred_impl=segred_impl,
         )
         stats.append(st)
     return ts, StepStats(*(torch.stack(field) for field in zip(*stats)))
