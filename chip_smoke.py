@@ -10,7 +10,10 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    and prints ptxas' register counts;
 3. holds the kernels against their plain PyTorch versions on random inputs: K2 forward
    (f32 and bf16 layouts) and K3 backward on random unaligned segments at (tile 16,
-   chunk 128) and (tile 32, chunk 256); K4 (10 and 17 rows) and K7 (10 and 17 rows) on
+   chunk 128) and (tile 32, chunk 256), and on segments whose splats sit on the borders of
+   the kernels' 8x4 warp sub-rectangles with opacities near 1/255; K2's stop decisions
+   (the zero checkpoints and the pair counts of `blend_pairs`) equal to the plain
+   version's, K3 bit-equal on two launches; K4 (10 and 17 rows) and K7 (10 and 17 rows) on
    random runs with empty runs and one run of 300,000 slots; K5 and K6 on random
    unaligned segments with rays 4 and 8 wide;
 4. drives the render path: `render_view` of a 1,000,000-Gaussian SH-degree-3 scene at
@@ -18,8 +21,10 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    count set to 0 just before and read just after; checks the aux counters, a finite
    image, that each kernel launched, and the image against the same frame through the
    plain versions on the card;
-5. holds K1 (expansion, exact) and K2 against their plain versions at the frame's own
-   shapes, and times kernels, plain versions and the library yardstick with CUDA events;
+5. holds K1 (expansion, exact) and K2 (and its stop decisions) against their plain
+   versions at the frame's own shapes, counts the (pixel, instance) pairs (walked without
+   a cull, kept by the cull, used, stopping), and times kernels, plain versions and the
+   library yardstick with CUDA events;
 6. drives the CLI (`--view` of a 100k-Gaussian PLY written by the port, 3 frames);
 7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
    the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
@@ -27,8 +32,9 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    set to 0 just before and read just after; checks one launch of K1-K4 a step, no
    overflow, finite state and a falling loss;
 8. holds `rasterize`'s six parameter gradients through the kernels against the plain
-   versions at the train step's shapes, and K2-bf16, K3 and K4 against their plain
-   versions on the step's own inputs, and times them; times the step (wall) and its
+   versions at the train step's shapes, and K2-bf16 (with its stop decisions and pair
+   counts), K3 (and its repeatability) and K4 against their plain versions on the step's
+   own inputs, and times them; times the step (wall) and its
    stages (CUDA events);
 9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
    distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
@@ -69,10 +75,13 @@ CLI_GAUSS = 100_000
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core FP32 FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-K2_OPS_PER_PAIR = 21  # ~20 FP32 operations and one exp per (pixel, instance) pair
-# K3, counted from blend_backward_plain: a pair that is evaluated costs the forward's 21;
-# a pair that is used costs 47 more: g.c 7, w 2, running sum and suffix 2, dL/da 3 (one a
-# divide), dL/dsigma 2, the ten products with their pixel sums 5+5+4+3+4+2+2+2+2+2
+# K2: ~20 FP32 operations and one exp per (pixel, instance) pair the data needs: the pairs
+# a pixel uses and the one that stops it (`blend_pairs` "used" + "stops"); the pairs that
+# fail the alpha test are work the cull avoids, not work the function needs
+K2_OPS_PER_PAIR = 21
+# K3, counted from blend_backward_plain: a needed pair costs the forward's 21; a pair that
+# is used costs 47 more: g.c 7, w 2, running sum and suffix 2, dL/da 3 (one a divide),
+# dL/dsigma 2, the ten products with their pixel sums 5+5+4+3+4+2+2+2+2+2
 K3_OPS_PER_USED_PAIR = 47
 # K5, counted from gut_blend_forward_plain: v = M d 15, |v|^2 5, max/sqrt/divide 3, n 3,
 # the cross product 9, power 6, exp/alpha/min/test 4, compositing 4
@@ -84,6 +93,7 @@ K5_OPS_PER_PAIR = 49
 K6_OPS_PER_USED_PAIR = 83
 TRAIN_STEPS = 30
 TILE_T, CHUNK_T = 32, 256  # the trainer's plan (bench.py:91)
+TILE_F, CHUNK_F, K_MAX_F = 16, 128, 4096  # render_view's plan
 CHUNK_GUT = 128  # the GUT blend's chunk (tpu_splat/ops/pallas/blend.py CHUNK)
 GUT_STEPS, GUT_PREFIX_STEPS = 20, 6  # the last six through the K7 lane
 
@@ -139,6 +149,12 @@ def phase(name: str, **fields) -> None:
     print(f"phase {name}: ok " + json.dumps(fields), flush=True)
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """The lines of an nvcc -Xptxas -v log that name a kernel, its registers, its spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
@@ -156,6 +172,28 @@ def check_blend(got, want, label: str) -> float:
     torch.testing.assert_close(chk, chk_p, rtol=0, atol=1e-5,
                                msg=lambda m: f"{label} chk: {m}")
     return max(max_err(out[..., :4], out_p[..., :4]), max_err(chk, chk_p))
+
+
+def check_stops(chk, chk_plain, flat_f32, args, kw, label: str) -> dict:
+    """Stop decisions of K2 against its plain version: the same (pixel, chunk) entries of
+    `chk` are 0, and the checkpoints give the same pair counts (`blend_pairs`: walked,
+    kept, used, stops). -> the counts."""
+    import torch
+
+    require(torch.equal(chk == 0, chk_plain == 0),
+            f"{label}: {int(((chk == 0) != (chk_plain == 0)).sum())} (pixel, chunk) "
+            "checkpoints are 0 on one side only")
+    got = blend_pairs(flat_f32, *args, chk, **kw)
+    want = blend_pairs(flat_f32, *args, chk_plain, **kw)
+    require(got == want, f"{label}: pair counts {got} against the plain version's {want}")
+    return want
+
+
+def check_blend_bwd_repeats(fn, *args, label: str, **kw) -> None:
+    """K3 gives the same bits on two launches (a fixed order of sums, no atomics)."""
+    import torch
+
+    require(torch.equal(fn(*args, **kw), fn(*args, **kw)), f"{label}: two launches differ")
 
 
 def check_blend_bwd(gflat, gflat_plain, owned, label: str) -> float:
@@ -186,10 +224,13 @@ def check_segsum(got, want, rows, start, end, label: str) -> float:
     return max_err(got, want)
 
 
-def random_segments(tile_size: int, chunk: int, seed: int, dev):
+def random_segments(tile_size: int, chunk: int, seed: int, dev, borders: bool = False):
     """Random blend inputs: 8x6 tiles, unaligned contiguous segments with gaps, up to
     4 chunks per tile, footprints of 1-6 px around each tile, opacities high enough
-    that many pixels stop early."""
+    that many pixels stop early. With `borders` the splats sit on the borders of the
+    blend kernels' 8x4 warp sub-rectangles (means within 0.05 px of the grid lines,
+    footprints of 0.5-3 px) and a third of them have an opacity within 1e-4 below to 1e-2
+    above 1/255, where the cull box is smallest."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -208,9 +249,15 @@ def random_segments(tile_size: int, chunk: int, seed: int, dev):
     cc = 1 / (s * s * rng.uniform(0.5, 2.0, m))
     mx = (tile_of % gw) * tile_size + rng.uniform(-8, tile_size + 8, m)
     my = (tile_of // gw) * tile_size + rng.uniform(-8, tile_size + 8, m)
-    flat = np.stack([mx, my, ca, rng.uniform(-0.3, 0.3, m) * np.sqrt(ca * cc), cc,
-                     rng.uniform(0.05, 1.0, m), *rng.uniform(0, 1, (3, m)),
-                     rng.uniform(1, 10, m)]).astype(np.float32)
+    op = rng.uniform(0.05, 1.0, m)
+    if borders:
+        ca, cc = ca * (s / rng.uniform(0.5, 3.0, m)) ** 2, cc * (s / rng.uniform(0.5, 3.0, m)) ** 2
+        mx = 8 * np.round(mx / 8) + rng.uniform(-0.05, 0.05, m)
+        my = 4 * np.round(my / 4) + rng.uniform(-0.05, 0.05, m)
+        low = rng.random(m) < 1 / 3
+        op[low] = rng.uniform(1 - 1e-4, 1 + 1e-2, int(low.sum())) / 255
+    flat = np.stack([mx, my, ca, rng.uniform(-0.3, 0.3, m) * np.sqrt(ca * cc), cc, op,
+                     *rng.uniform(0, 1, (3, m)), rng.uniform(1, 10, m)]).astype(np.float32)
     as_i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
     kw = dict(n_tiles=n_tiles, grid_w=gw, tile_size=tile_size, max_chunks=max_chunks,
               chunk=chunk)
@@ -270,11 +317,15 @@ def random_gut_segments(tile_size: int, chunk: int, seed: int, dev, ray_width: i
 
 
 def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_chunks,
-                chunk) -> tuple[int, int]:
-    """(pixel, instance) pairs the blend must evaluate on these inputs: per pixel, its
-    tile's instances up to and including the one that stops it (all if none does); and
-    how many of them it uses (pass the alpha test, before the stop). Uses the
-    checkpoints `chk` as each chunk's entry transmittance; `flat` holds F_* rows."""
+                chunk) -> dict:
+    """(pixel, instance) pair counts of the blend on these inputs, from the checkpoints
+    `chk` (each chunk's entry transmittance); `flat` holds F_* rows:
+      walked: per pixel, its tile's instances up to and including the one that stops it
+        (all if none does): what a blend without a cull evaluates;
+      kept:   those of them whose cull box meets the pixel's 8x4 sub-rectangle
+        (`cull_keep`): what K2 and K3 evaluate;
+      used:   those that pass the alpha test before the stop;
+      stops:  the stopping pairs, one for each pixel that stops."""
     import torch
 
     from tpu_splat_torch.ops.cuda.blend import tile_pixel_centers
@@ -284,37 +335,45 @@ def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_
     px, py = px[:, None, :], py[:, None, :]
     cnt = count.long()
     lane = torch.arange(chunk, device=dev)
-    total = used = 0
+    counts = dict(walked=0, kept=0, used=0, stops=0)
     step = max(1, (1 << 26) // (chunk * tile_size * tile_size))
     for t0 in range(0, n_tiles, step):
-        a, b = _blend_pairs_of(flat, seg_start[t0:t0 + step], cnt[t0:t0 + step],
+        part = _blend_pairs_of(flat, seg_start[t0:t0 + step], cnt[t0:t0 + step],
                                chk[t0:t0 + step], px[t0:t0 + step], py[t0:t0 + step], lane,
                                chunk, max_chunks)
-        total, used = total + a, used + b
-    return total, used
+        counts = {k: v + part[k] for k, v in counts.items()}
+    return counts
 
 
-def _count_pairs(alpha, valid, t_entry, n_lanes, lane, chunk):
-    """Evaluated and used pairs of one chunk of a batch of tiles, from its alphas and
-    validity [T, C, P], its entry transmittance [T, P] and its lane counts [T]."""
+def _count_pairs(alpha, valid, t_entry, n_lanes, lane, chunk, keep=None) -> dict:
+    """Pair counts (see `blend_pairs`) of one chunk of a batch of tiles, from its alphas
+    and validity [T, C, P], its entry transmittance [T, P], its lane counts [T] and, for
+    `kept`, the cull's verdict [T, C, P]."""
     import torch
 
     cp = torch.cumprod(1.0 - torch.where(valid, alpha, 0.0), dim=1)
     below = (t_entry[:, None, :] * cp < 1e-4) & valid
     stops = below.any(1)
     first = torch.argmax(below.to(torch.int8), dim=1) + 1
+    entered = t_entry > 0
     pairs = torch.where(stops, first, n_lanes[:, None])
-    total = int(torch.where(t_entry > 0, pairs, 0).sum())
     before_stop = lane[None, :, None] < torch.where(stops, first - 1, chunk)[:, None, :]
-    return total, int((valid & before_stop & (t_entry > 0)[:, None, :]).sum())
+    counts = dict(walked=int(torch.where(entered, pairs, 0).sum()),
+                  used=int((valid & before_stop & entered[:, None, :]).sum()),
+                  stops=int((stops & entered).sum()))
+    if keep is not None:
+        walked = (lane[None, :, None] < pairs[:, None, :]) & entered[:, None, :]
+        counts["kept"] = int((walked & keep).sum())
+    return counts
 
 
 def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
     import torch
 
+    from tpu_splat_torch.ops.cuda.blend import cull_boxes, cull_keep
     from tpu_splat_torch.ops.projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA
 
-    total = used = 0
+    counts = dict(walked=0, kept=0, used=0, stops=0)
     for j in range(max_chunks):
         t_entry = chk[:, :, j]  # [T, P]; 0 = stopped or not visited
         if not bool((t_entry > 0).any()):
@@ -329,9 +388,10 @@ def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
         alpha = torch.clamp_max(op * torch.exp(-torch.clamp_min(sigma, 0.0)),
                                 MAX_FRAGMENT_ALPHA)
         valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
-        a, b = _count_pairs(alpha, valid, t_entry, lane_valid.sum(1), lane, chunk)
-        total, used = total + a, used + b
-    return total, used
+        keep = cull_keep(cull_boxes(f)[..., None], px, py)
+        part = _count_pairs(alpha, valid, t_entry, lane_valid.sum(1), lane, chunk, keep)
+        counts = {k: v + part[k] for k, v in counts.items()}
+    return counts
 
 
 def gut_blend_pairs(flat, rays, seg_start, count, chk, *, n_tiles, tile_size, max_chunks,
@@ -354,8 +414,8 @@ def gut_blend_pairs(flat, rays, seg_start, count, chk, *, n_tiles, tile_size, ma
             if not bool((t_entry > 0).any()):
                 break
             _, _, lane_valid, a, valid, _ = ray_response(flat, d, do, start, cnt, j, chunk)
-            x, y = _count_pairs(a, valid, t_entry, lane_valid.sum(1), lane, chunk)
-            total, used = total + x, used + y
+            part = _count_pairs(a, valid, t_entry, lane_valid.sum(1), lane, chunk)
+            total, used = total + part["walked"], used + part["used"]
     return total, used
 
 
@@ -411,6 +471,57 @@ def train_setup(params, focal, dev, cam_params=None):
     plan = RasterPlan(max_instances=bucket(int(total * 1.1)), k_max=bucket(int(ktile * 1.2), 4),
                       chunk=chunk, tile_size=TILE_T, pack_bf16=not gut)
     return ts0, target, cam, bg0, plan, step_kw
+
+
+def frame_blend_inputs(state, focal, dev):
+    """K2's inputs at the render frame (`render_view`'s plan: tile 16, chunk 128, f32
+    layout) for `state` seen by the identity camera. -> (proj, inst, (flat, seg_start,
+    count), kw)"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import build_sorted_instances, feature_table
+    from tpu_splat_torch.ops.projection import project
+    from tpu_splat_torch.ops.rasterize import blend_inputs
+    from tpu_splat_torch.render import max_instances_for
+
+    gw, gh = -(-WIDTH // TILE_F), -(-HEIGHT // TILE_F)
+    with torch.no_grad():
+        proj = project(state.means, state.scaling_raw, state.rotation_raw, state.opacity_raw,
+                       state.sh0, state.shN, state.alive, torch.eye(4, device=dev),
+                       torch.zeros(3, device=dev), focal, focal, WIDTH / 2.0, HEIGHT / 2.0,
+                       WIDTH, HEIGHT, 3, tile_size=TILE_F)
+        inst = build_sorted_instances(proj, gw, gh, max_instances_for(state.means.shape[0]),
+                                      TILE_F)
+        flat, seg, cnt, max_chunks = blend_inputs(inst, feature_table(proj), k_max=K_MAX_F,
+                                                  chunk=CHUNK_F)
+    kw = dict(n_tiles=gw * gh, grid_w=gw, tile_size=TILE_F, max_chunks=max_chunks,
+              chunk=CHUNK_F)
+    return proj, inst, (flat, seg, cnt), kw
+
+
+def train_blend_inputs(sp, cam, plan, dev):
+    """K2-bf16's and K3's inputs at the train step (tile 32, chunk 256, bf16 pack, SH degree
+    0) for the splat `sp` seen by `cam`, and a random `gout` of the loss's scale.
+    -> (inst, (flat, seg_start, count), gout, kw)"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import build_sorted_instances, feature_table
+    from tpu_splat_torch.ops.projection import project
+    from tpu_splat_torch.ops.rasterize import blend_inputs
+
+    gw, gh = -(-WIDTH // TILE_T), -(-HEIGHT // TILE_T)
+    with torch.no_grad():
+        proj = project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0,
+                       sp.shN, sp.alive, torch.as_tensor(cam[0], device=dev),
+                       torch.zeros(3, device=dev), *cam[2:], WIDTH, HEIGHT, 0, tile_size=TILE_T)
+        inst = build_sorted_instances(proj, gw, gh, plan.max_instances, TILE_T)
+        flat, seg, cnt, max_chunks = blend_inputs(inst, feature_table(proj), k_max=plan.k_max,
+                                                  chunk=CHUNK_T, pack_bf16=True)
+    kw = dict(n_tiles=gw * gh, grid_w=gw, tile_size=TILE_T, max_chunks=max_chunks,
+              chunk=CHUNK_T)
+    gout = torch.randn((gw * gh, TILE_T * TILE_T, 8), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(8)) / (3 * WIDTH * HEIGHT)
+    return inst, (flat, seg, cnt), gout, kw
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -789,25 +900,27 @@ def main() -> int:
     # -- build every kernel of the path from the checkout's sources
     t0 = time.perf_counter()
     libs = build.build_all()
-    regs = [ln.strip() for name in libs for ln in build.build_log(name).splitlines()
-            if "registers" in ln or "spill" in ln or "entry function" in ln]
+    regs = ptxas_lines("".join(build.build_log(name) for name in libs))
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           libraries=[str(p.name) for p in libs.values()], ptxas=regs)
 
-    # -- K2 against its plain version on random unaligned segments
+    # -- K2 against its plain version on random unaligned segments, and on segments whose
+    # splats sit on the warp sub-rectangles' borders with opacities near 1/255
     k2_random_err = k2b_random_err = k3_random_err = 0.0
-    for ts, ch, seed in ((16, 128, 1), (32, 256, 2)):
-        args, kw = random_segments(ts, ch, seed, dev)
+    for ts, ch, seed, borders in ((16, 128, 1, False), (32, 256, 2, False), (16, 128, 3, True),
+                                  (32, 256, 4, True)):
+        tag = f"{ts}-{ch}" + ("-borders" if borders else "")
+        args, kw = random_segments(ts, ch, seed, dev, borders)
         got = blend_forward(*args, **kw)
         want = blend_forward_plain(*args, **kw)
         torch.cuda.synchronize()
-        err = check_blend(got, want, f"K2 random tile {ts} chunk {ch}")
+        err = check_blend(got, want, f"K2 random {tag}")
         k2_random_err = max(k2_random_err, err)
         # pixels that stopped early: a zero checkpoint in a chunk their tile has
         n_chunks = (args[2] + ch - 1) // ch
         visited = torch.arange(kw["max_chunks"], device=dev) < n_chunks[:, None, None]
         stopped = float(((want[1] == 0) & visited).any(-1).float().mean())
-        phase(f"k2-random-{ts}-{ch}", max_abs_err=err, stopped_pixel_share=stopped)
+        phase(f"k2-random-{tag}", max_abs_err=err, stopped_pixel_share=stopped)
         # K2 in the bf16 layout, and K3 in both layouts, on the same segments
         gen = torch.Generator(device=dev).manual_seed(seed)
         gout = 0.3 * torch.randn(got[0].shape, device=dev, generator=gen)
@@ -817,16 +930,19 @@ def main() -> int:
         for layout, flat_l in (("f32", args[0]), ("bf16", pack_features_bf16(args[0]))):
             fwd = blend_forward(flat_l, *args[1:], **kw)
             fwd_plain = blend_forward_plain(flat_l, *args[1:], **kw)
-            err = check_blend(fwd, fwd_plain, f"K2 {layout} random tile {ts} chunk {ch}")
+            err = check_blend(fwd, fwd_plain, f"K2 {layout} random {tag}")
             k2b_random_err = max(k2b_random_err, err if layout == "bf16" else 0.0)
+            pairs = check_stops(fwd[1], fwd_plain[1], unpack_features(flat_l), args[1:], kw,
+                                f"K2 {layout} random {tag}")
             bwd_args = (flat_l, *args[1:], fwd[1], fwd[0], gout)
             gflat = blend_backward(*bwd_args, **kw)
             gflat_plain = blend_backward_plain(*bwd_args, **kw)
             torch.cuda.synchronize()
-            rel = check_blend_bwd(gflat, gflat_plain, owned, f"K3 {layout} random {ts}/{ch}")
+            rel = check_blend_bwd(gflat, gflat_plain, owned, f"K3 {layout} random {tag}")
+            check_blend_bwd_repeats(blend_backward, *bwd_args, label=f"K3 {layout} {tag}", **kw)
             k3_random_err = max(k3_random_err, rel)
-            phase(f"k3-random-{ts}-{ch}-{layout}", k2_max_abs_err=err, k3_rel_err=rel,
-                  k3_max_abs_grad=float(gflat_plain.abs().max()))
+            phase(f"k3-random-{tag}-{layout}", k2_max_abs_err=err, k3_rel_err=rel,
+                  k3_max_abs_grad=float(gflat_plain.abs().max()), pairs=pairs)
 
     # -- K4 against its plain version on random runs (empty runs, one very long run)
     rng = np.random.default_rng(4)
@@ -926,13 +1042,12 @@ def main() -> int:
           alpha_err_vs_plain=alpha_err)
 
     # -- both kernels against their plain versions at the frame's own shapes
-    gw, gh, ts, chunk, k_max = -(-WIDTH // 16), -(-HEIGHT // 16), 16, 128, 4096
     f = 0.5 * WIDTH / math.tan(math.radians(fov) / 2)
+    proj, inst, (flat, seg_start, count), bkw = frame_blend_inputs(state, f, dev)
+    gw, gh, ts, chunk = -(-WIDTH // TILE_F), -(-HEIGHT // TILE_F), TILE_F, CHUNK_F
     proj_args = (state.means, state.scaling_raw, state.rotation_raw, state.opacity_raw,
-                 state.sh0, state.shN, state.alive, torch.as_tensor(w2c, device=dev),
-                 torch.zeros(3, device=dev), f, f, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT,
-                 3)
-    proj = project(*proj_args, tile_size=ts)
+                 state.sh0, state.shN, state.alive, torch.eye(4, device=dev),
+                 torch.zeros(3, device=dev), f, f, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, 3)
     ftab, itab, offs_incl = emission_tables(proj)
     k1 = expand_emission(ftab, itab, offs_incl, max_inst)
     k1_plain = expand_emission_plain(ftab, itab, offs_incl, max_inst)
@@ -941,16 +1056,13 @@ def main() -> int:
     k1_err = max(max_err(k1[0], k1_plain[0]), max_err(k1[1], k1_plain[1]))
     require(int(k1[1][0].max()) < N_GAUSS and int(k1[1][1].max()) < max_inst,
             "K1 owner or rect-walk index out of range")
-    inst = build_sorted_instances(proj, gw, gh, max_inst, ts)
-    flat, seg_start, count, max_chunks = blend_inputs(inst, feature_table(proj), k_max=k_max,
-                                                      chunk=chunk)
-    bkw = dict(n_tiles=gw * gh, grid_w=gw, tile_size=ts, max_chunks=max_chunks, chunk=chunk)
     k2 = blend_forward(flat, seg_start, count, **bkw)
     k2_plain = blend_forward_plain(flat, seg_start, count, **bkw)
     torch.cuda.synchronize()
     k2_err = check_blend(k2, k2_plain, "K2 frame")
+    pairs = check_stops(k2[1], k2_plain[1], flat, (seg_start, count), bkw, "K2 frame")
     phase("kernel-parity-frame", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
-          k2_random_max_abs_err=k2_random_err)
+          k2_random_max_abs_err=k2_random_err, k2_pairs=pairs)
 
     # -- times at the frame's shapes
     k1_ms = cuda_ms(lambda: expand_emission(ftab, itab, offs_incl, max_inst), 20)
@@ -970,11 +1082,10 @@ def main() -> int:
                           warmup=1)
 
     n_inst = int(count.sum())
-    pairs, _ = blend_pairs(flat, seg_start, count, k2_plain[1], **bkw)
     k1_bytes = 4 * (12 * N_GAUSS + 13 * max_inst)
-    k2_bytes = 4 * (10 * n_inst + 2 * gw * gh) + 4 * gw * gh * ts * ts * (8 + max_chunks)
-    k2_ops = K2_OPS_PER_PAIR * pairs
-    k2_bound_bytes, k2_bound_ops = k2_bytes / PEAK_BYTES_S * 1e3, k2_ops / PEAK_F32_S * 1e3
+    k2_bytes = 4 * (10 * n_inst + 2 * gw * gh) + 4 * gw * gh * ts * ts * (8 + bkw["max_chunks"])
+    k2_ops = K2_OPS_PER_PAIR * (pairs["used"] + pairs["stops"])
+    k2_bound = bound_ms(k2_bytes, k2_ops)
     kernels = [
         dict(name="expand", route="cuda", source="tpu_splat_torch/csrc/expand.cu",
              shapes="render frame, 2^24 slots",
@@ -984,13 +1095,11 @@ def main() -> int:
         dict(name="blend_fwd", route="cuda", source="tpu_splat_torch/csrc/blend_fwd.cu",
              shapes="render frame, f32 layout, tile 16, chunk 128",
              replaces="tpu_splat/ops/pallas/blend.py:370", launches=launches["blend_forward"],
-             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-             bound_ms=max(k2_bound_bytes, k2_bound_ops),
-             bound_by="operations" if k2_bound_ops >= k2_bound_bytes else "bytes",
-             library_ms=None),
+             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound[0],
+             bound_by=k2_bound[1], library_ms=None),
     ]
-    phase("kernel-times", k1_bytes=k1_bytes, k2_bytes=k2_bytes, k2_pairs=pairs,
-          k2_instances=n_inst, k2_pairs_if_no_stop=n_inst * ts * ts)
+    phase("kernel-times", k1_bytes=k1_bytes, k2_bytes=k2_bytes, k2_ops=k2_ops,
+          k2_pairs=pairs, k2_instances=n_inst, k2_pairs_if_no_stop=n_inst * ts * ts)
 
     # -- frame time and per-stage split (CUDA events around each stage of rasterize)
     frame_ms = []
@@ -1010,7 +1119,7 @@ def main() -> int:
         si = build_sorted_instances(p, gw, gh, max_inst, ts)
         ev[2].record()
         tiles = blend_instances(si, feature_table(p), grid_w=gw, grid_h=gh, tile_size=ts,
-                                k_max=k_max, chunk=chunk)
+                                k_max=K_MAX_F, chunk=chunk)
         ev[3].record()
         compose_output(*tiles, bg, grid_w=gw, grid_h=gh, tile_size=ts, width=WIDTH,
                        height=HEIGHT, render_mode="RGB")
@@ -1122,24 +1231,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- K2-bf16, K3 and K4 against their plain versions on the step's own inputs; times
-    gw_t, gh_t = -(-WIDTH // TILE_T), -(-HEIGHT // TILE_T)
     sp = ts.splat
-    with torch.no_grad():
-        proj_t = project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0,
-                         sp.shN, sp.alive, torch.as_tensor(cam[0], device=dev),
-                         torch.zeros(3, device=dev), focal, focal, WIDTH / 2.0, HEIGHT / 2.0,
-                         WIDTH, HEIGHT, 0, tile_size=TILE_T)
-        inst_t = build_sorted_instances(proj_t, gw_t, gh_t, plan.max_instances, TILE_T)
-        flat_t, seg_t, count_t, maxc_t = blend_inputs(inst_t, feature_table(proj_t),
-                                                      k_max=plan.k_max, chunk=CHUNK_T,
-                                                      pack_bf16=True)
-    tkw = dict(n_tiles=gw_t * gh_t, grid_w=gw_t, tile_size=TILE_T, max_chunks=maxc_t,
-               chunk=CHUNK_T)
+    inst_t, (flat_t, seg_t, count_t), gout_t, tkw = train_blend_inputs(sp, cam, plan, dev)
+    gw_t, gh_t, maxc_t = -(-WIDTH // TILE_T), -(-HEIGHT // TILE_T), tkw["max_chunks"]
     k2b = blend_forward(flat_t, seg_t, count_t, **tkw)
     k2b_plain = blend_forward_plain(flat_t, seg_t, count_t, **tkw)
     k2b_err = max(check_blend(k2b, k2b_plain, "K2 bf16 train frame"), k2b_random_err)
-    gout_t = torch.randn(k2b[0].shape, device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(8)) / (3 * WIDTH * HEIGHT)
     bwd_t = (flat_t, seg_t, count_t, k2b[1], k2b[0], gout_t)
     k3 = blend_backward(*bwd_t, **tkw)
     k3_plain = blend_backward_plain(*bwd_t, **tkw)
@@ -1148,6 +1245,9 @@ def main() -> int:
     # above), so the owned columns are the first n_valid_t
     owned_t = torch.arange(flat_t.shape[1], device=dev) < n_valid_t
     k3_err = max(check_blend_bwd(k3, k3_plain, owned_t, "K3 train frame"), k3_random_err)
+    check_blend_bwd_repeats(blend_backward, *bwd_t, label="K3 train frame", **tkw)
+    pairs_t = check_stops(k2b[1], k2b_plain[1], unpack_features(flat_t), (seg_t, count_t),
+                          tkw, "K2 bf16 train frame")
     rows_t = emission_order(k3, inst_t.sorted_emis)
     k4_in = (rows_t, inst_t.emis_start, inst_t.emis_end)
     k4 = segsum_emission(*k4_in)
@@ -1169,17 +1269,17 @@ def main() -> int:
     check_segsum(library_segsum(), k4_plain, *k4_in, "K4 library yardstick")
     k4_lib_ms = cuda_ms(library_segsum, 20)
 
-    pairs_t, used_t = blend_pairs(unpack_features(flat_t), seg_t, count_t, k2b_plain[1], **tkw)
     n_slots_t = int(inst_t.total_instances)
     tp_t = gw_t * gh_t * TILE_T * TILE_T
     k2b_bytes = 32 * n_valid_t + 8 * gw_t * gh_t + 4 * tp_t * (8 + maxc_t)
     k3_bytes = 32 * n_valid_t + 8 * gw_t * gh_t + 4 * tp_t * (16 + maxc_t) + 40 * n_valid_t
-    k3_ops = K2_OPS_PER_PAIR * pairs_t + K3_OPS_PER_USED_PAIR * used_t
+    k2b_ops = K2_OPS_PER_PAIR * (pairs_t["used"] + pairs_t["stops"])
+    k3_ops = k2b_ops + K3_OPS_PER_USED_PAIR * pairs_t["used"]
     k4_bytes = 40 * n_slots_t + 48 * N_GAUSS
 
     for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
         ("blend_fwd_bf16", "blend_fwd.cu", "blend.py:370", "blend_forward", k2b_err, k2b_ms,
-         k2b_plain_ms, bound_ms(k2b_bytes, K2_OPS_PER_PAIR * pairs_t), None),
+         k2b_plain_ms, bound_ms(k2b_bytes, k2b_ops), None),
         ("blend_bwd", "blend_bwd.cu", "blend.py:564", "blend_backward", k3_err, k3_ms,
          k3_plain_ms, bound_ms(k3_bytes, k3_ops), None),
         ("segsum", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
@@ -1191,11 +1291,11 @@ def main() -> int:
             replaces=f"tpu_splat/ops/pallas/{replaces}", launches=train_launches[fn_name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib))
-    phase("train-kernel-times", k2_bf16_bytes=k2b_bytes, k3_bytes=k3_bytes, k3_ops=k3_ops,
-          k4_bytes=k4_bytes, pairs=pairs_t, used_pairs=used_t, tile_instances=n_valid_t,
+    phase("train-kernel-times", k2_bf16_bytes=k2b_bytes, k2_bf16_ops=k2b_ops, k3_bytes=k3_bytes,
+          k3_ops=k3_ops, k4_bytes=k4_bytes, pairs=pairs_t, tile_instances=n_valid_t,
           emission_slots=n_slots_t, k3_rel_err=k3_err, k4_max_abs_err=k4_err,
           k4_random_max_abs_err=k4_random_err)
-    del k2b, k2b_plain, k3, k3_plain, k4, k4_plain, rows_t, proj_t, inst_t, flat_t, bwd_t
+    del k2b, k2b_plain, k3, k3_plain, k4, k4_plain, rows_t, inst_t, flat_t, bwd_t
     torch.cuda.empty_cache()
 
     # -- the step's split: the stages of train_step, each between two CUDA events

@@ -6,7 +6,8 @@ They import neither JAX nor the JAX package, so they run where only PyTorch is i
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1 exactly (integer bookkeeping and row copies); K2 `out` and `chk` atol 1e-5
-in both layouts (rtol 1e-5 on the accumulated depth); K3 max abs error <= 1e-4 of the
+in both layouts (rtol 1e-5 on the accumulated depth), its stop decisions (zero checkpoints)
+exactly; K3 bit-equal on two launches, and max abs error <= 1e-4 of the
 largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
 order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
 running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds);
@@ -27,7 +28,7 @@ import torch
 from tpu_splat_torch.convert import splat_from_numpy
 from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backward_plain,
                                             blend_forward, blend_forward_plain,
-                                            pack_features_bf16)
+                                            pack_features_bf16, unpack_features)
 from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
                                                   gut_blend_backward_plain,
                                                   gut_blend_forward, gut_blend_forward_plain)
@@ -38,7 +39,7 @@ from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_pl
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
-from chip_smoke import random_gut_segments, random_segments
+from chip_smoke import blend_pairs, random_gut_segments, random_segments
 from torch_fixtures import blend_fixture, emission_runs
 
 
@@ -80,12 +81,17 @@ def test_blend_kernel_matches_plain_on_card(chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("borders", [False, True])
 @pytest.mark.parametrize("layout", ["f32", "bf16"])
 @pytest.mark.parametrize("tile_size,chunk", [(16, 128), (32, 256)])
-def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout):
+def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout, borders):
+    """K2 and K3 against their plain versions on random segments; with `borders` the
+    splats sit on the kernels' 8x4 warp sub-rectangle borders, a third of them with an
+    opacity near 1/255. K2's stop decisions equal the plain version's (the same zero
+    checkpoints and pair counts); K3 gives the same bits on two launches."""
     _require_cuda()
     dev = torch.device("cuda")
-    (flat, seg_start, count), kw = random_segments(tile_size, chunk, 7, dev)
+    (flat, seg_start, count), kw = random_segments(tile_size, chunk, 7, dev, borders)
     if layout == "bf16":
         flat = pack_features_bf16(flat)
     out, chk = blend_forward(flat, seg_start, count, **kw)
@@ -93,10 +99,17 @@ def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout):
     torch.testing.assert_close(out[..., :4], want_out[..., :4], rtol=0, atol=1e-5)
     torch.testing.assert_close(out[..., 4:], want_out[..., 4:], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
+    assert torch.equal(chk == 0, want_chk == 0)
+    feat = unpack_features(flat)
+    pairs = blend_pairs(feat, seg_start, count, want_chk, **kw)
+    assert blend_pairs(feat, seg_start, count, chk, **kw) == pairs
+    assert pairs["stops"] > 0 and pairs["kept"] < pairs["walked"]
     gen = torch.Generator(device=dev).manual_seed(3)
     gout = 0.3 * torch.randn(out.shape, device=dev, generator=gen)
-    got = blend_backward(flat, seg_start, count, chk, out, gout, **kw)
-    want = blend_backward_plain(flat, seg_start, count, chk, out, gout, **kw)
+    args = (flat, seg_start, count, chk, out, gout)
+    got = blend_backward(*args, **kw)
+    assert torch.equal(got, blend_backward(*args, **kw))
+    want = blend_backward_plain(*args, **kw)
     torch.cuda.synchronize()
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
     owned = torch.zeros(flat.shape[1], dtype=torch.bool, device=dev)

@@ -29,8 +29,11 @@ EXACT_FIELDS = ("sorted_tile_id", "tile_start", "tile_count", "total_instances",
                 "max_tile_count", "n_visible", "emis_start", "emis_end")
 
 
-def _jax_projected(n, seed, width, height, tile_size, spread=1.0):
+def _jax_projected(n, seed, width, height, tile_size, n_scene, spread=1.0):
+    """The JAX projection of make_scene(n) padded to n_scene Gaussians with dead ones."""
     scene = make_scene(n, seed, spread=spread)
+    scene = {k: np.concatenate([v, np.zeros_like(v[:1]).repeat(n_scene - n, 0)])
+             for k, v in scene.items()}  # alive False, so projected invisible
     cam = make_camera(width, height)
     keys = ("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0", "shN", "alive")
     return jax_project(*(jnp.asarray(scene[k]) for k in keys), cam["w2c"],
@@ -38,26 +41,33 @@ def _jax_projected(n, seed, width, height, tile_size, spread=1.0):
                        width, height, 3, tile_size=tile_size)
 
 
-# (n, seed, width, height, tile_size, max_instances): the second case spreads its
-# instances over several 512-slot expansion windows, the third leaves most slots empty
-@pytest.mark.parametrize("case", [(300, 0, 64, 48, 16, 2048), (600, 1, 96, 64, 16, 4096),
-                                  (40, 2, 48, 32, 32, 1024)])
+# Every case pads its scene to N_SCENE Gaussians and uses MAX_INST slots: the Pallas
+# expansion's build depends on both, so it compiles once for the three cases.
+N_SCENE, MAX_INST = 600, 4096
+
+
+# (n, seed, width, height, tile_size, what the case exercises): "two" fills two 512-slot
+# expansion windows, "windows" spreads over several, "sparse" fits in the first window
+# and leaves the other windows empty (tile 32)
+@pytest.mark.parametrize("case", [(300, 0, 64, 48, 16, "two"), (600, 1, 96, 64, 16, "windows"),
+                                  (40, 2, 48, 32, 32, "sparse")])
 @pytest.mark.parametrize("lane", ["pallas", "xla"])
 def test_instances_match_jax(case, lane):
-    n, seed, width, height, ts, max_inst = case
-    pj = _jax_projected(n, seed, width, height, ts)
+    n, seed, width, height, ts, what = case
+    pj = _jax_projected(n, seed, width, height, ts, N_SCENE)
     gw, gh = -(-width // ts), -(-height // ts)
-    want = jax_build_sorted_instances(pj, gw, gh, max_inst, ts, expand=lane)
+    want = jax_build_sorted_instances(pj, gw, gh, MAX_INST, ts, expand=lane)
     got = build_sorted_instances(Projected(*(torch.from_numpy(np.array(x)) for x in pj)),
-                                 gw, gh, max_inst, ts)
+                                 gw, gh, MAX_INST, ts)
     total = int(want.total_instances)
-    assert 0 < total <= max_inst and (case[5] < 4096 or total > 1024)
+    windows = {"two": (512, 1024), "windows": (1024, MAX_INST), "sparse": (0, 512)}[what]
+    assert windows[0] < total <= windows[1]
     for name in EXACT_FIELDS:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)
     # slots past `total` have no owner; the XLA lane (and the port) fill them with the
     # last owner, the Pallas lane with 0 — they sort to the tail, after position total
-    upto = max_inst if lane == "xla" else total
+    upto = MAX_INST if lane == "xla" else total
     for name in ("sorted_gid", "sorted_emis", "emis_rank"):
         np.testing.assert_array_equal(getattr(got, name).numpy()[:upto],
                                       np.asarray(getattr(want, name))[:upto], err_msg=name)

@@ -86,8 +86,10 @@ def test_ssim_and_photometric_loss_match_jax():
     np.testing.assert_allclose(float(ssim(_t(a), _t(b))), float(jax_ssim(a, b)), rtol=1e-5)
     np.testing.assert_allclose(float(ssim(_t(a)[None], _t(b)[None])), float(jax_ssim(a, b)),
                                rtol=1e-5)
+    # one jitted build for each weight (eager value_and_grad dispatches SSIM op by op)
+    value_and_grad = jax.jit(jax.value_and_grad(jax_losses.photometric_loss), static_argnums=2)
     for lam in (0.0, 0.2):
-        want, want_g = jax.value_and_grad(jax_losses.photometric_loss)(jnp.asarray(a), b, lam)
+        want, want_g = value_and_grad(jnp.asarray(a), b, lam)
         x = _t(a).requires_grad_(True)
         got = losses.photometric_loss(x, _t(b), lam)
         (got_g,) = torch.autograd.grad(got, x)

@@ -20,9 +20,10 @@
 // Columns that no tile owns, and columns of chunks the forward never reached, are not
 // written: the wrapper hands in a zeroed gflat.
 //
-// Bound on the H100: operations. About 60 FP32 operations, one exp and one divide per
-// used (pixel, instance) pair, plus the pixel reduction; the bytes (feature columns,
-// chk, out, gout read, ten floats an instance written) are far smaller.
+// Bound on the H100: operations at the step's shapes (0.128 ms against 0.067 ms for the
+// bytes: feature columns once a tile, chk, out, gout read, ten floats an instance
+// written): about 21 FP32 operations for each pair a pixel uses or stops at, and 47 more
+// (one exp, one divide, the pixel sums) for each used pair.
 //
 // Design.
 //  * The used set is the forward's. Each chunk is replayed front to back from its entry
@@ -34,15 +35,26 @@
 //  * No back-to-front walk is needed: the suffix of instance i is the pixel's total
 //    minus the prefix through i, and the total is known from the forward's output:
 //    g . out + gT T_final. One front-to-back pass carries the prefix in a register.
-//  * The pixel reduction. A thread sums its own pixels' ten products, a warp reduces
-//    them by shuffles (skipped when no lane of the warp used the instance, which is
-//    common: a splat covers a small part of a tile), lane 0 parks the warp's sums in its
-//    own shared-memory slice, and after each batch of 64 instances the block adds the
-//    eight slices in warp order and writes the columns. No atomics: the sums have a
-//    fixed order and the result is the same from run to run.
+//  * The cull of the forward (blend_common.cuh): the staging thread computes each
+//    instance's box beside its features; a warp tests 32 instances at a time against its
+//    8x4 sub-rectangles with one ballot and replays only the instances whose box meets
+//    one, and for each only the sub-rectangles it meets. The cull skips only pairs the
+//    decision arithmetic rejects, so the replay sees the forward's used set.
+//  * The pixel reduction. A thread sums its own pixels' ten products; a warp that walked an
+//    instance and used it on some lane reduces them by shuffles, and lane 0 parks the
+//    warp's sums in its own shared-memory slice (warps whose rectangle the instance misses
+//    do neither: their slice keeps its zero). After each batch of 64 instances the block
+//    adds the eight slices in warp order, writes the columns and re-zeroes the slices. No
+//    atomics: the sums have a fixed order and the result is the same from run to run.
 //  * Blocks write only their own tile's columns; tiles' column ranges are disjoint.
 //  * As in the forward, 256 threads a block, one pixel a thread at tile 16 and four at
-//    tile 32. The block stops at the first chunk that no pixel enters alive.
+//    tile 32, in the same warp rectangles. The block stops at the first chunk that no pixel
+//    enters alive.
+//
+// ptxas (-Xptxas -v, CUDA 12.9, sm_90a): tile 32 80 registers and 10 bytes of spills under
+// __launch_bounds__(256, 3) (three blocks an SM: 2.40 ms at the train step against 2.8 ms
+// with 107 registers and two blocks; four blocks, 64 registers, spilled 74 bytes and took
+// 3.17 ms); tile 16 62 registers, no spills.
 
 #include "blend_common.cuh"
 
@@ -50,19 +62,20 @@ namespace {
 
 using namespace blend;
 
-constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 64;  // instances per cross-warp reduction
 
 template <int PPT>
-__global__ void __launch_bounds__(kThreads) blend_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_bwd_kernel(
     const void* __restrict__ flat, bool is_bf16, long long stride,  // [rows, stride]
     const int* __restrict__ seg_start, const int* __restrict__ count,  // [T]
-    int grid_w, int tile_size, int chunk, int max_chunks,
+    int grid_w, int chunk, int max_chunks,
     const float* __restrict__ chk,   // [T, P, max_chunks]
     const float* __restrict__ out,   // [T, P, 8]
     const float* __restrict__ gout,  // [T, P, 8]
     float* __restrict__ gflat, long long gstride) {  // [kFeat, gstride], zeroed
+  using L = Layout<PPT>;
   __shared__ float s_feat[kFeat][kMaxChunk];
+  __shared__ float s_box[kBox][kMaxChunk];
   __shared__ float s_part[kWarps][kFeat][kBatch];
   constexpr int P = kThreads * PPT;
   const int t = blockIdx.x;
@@ -71,8 +84,10 @@ __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(
   const int seg0 = seg_start[t];
   const int cnt = min(max(count[t], 0), max_chunks * chunk);
   const int nch = (cnt + chunk - 1) / chunk;
-  const int tx = t % grid_w;
-  const int ty = t / grid_w;
+  const int tx0 = (t % grid_w) * L::kTile;
+  const int ty0 = (t / grid_w) * L::kTile;
+  const float rx0 = static_cast<float>(tx0 + L::rect_x(warp)) + 0.5f;
+  const float ry0 = static_cast<float>(ty0 + L::rect_y(warp)) + 0.5f;
 
   for (int i = threadIdx.x; i < kWarps * kFeat * kBatch; i += kThreads) {
     (&s_part[0][0][0])[i] = 0.0f;
@@ -84,10 +99,10 @@ __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(
   size_t chk_row[PPT];
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    const int p = threadIdx.x + q * kThreads;
-    px[q] = static_cast<float>(tx * tile_size + p % tile_size) + 0.5f;
-    py[q] = static_cast<float>(ty * tile_size + p / tile_size) + 0.5f;
-    const size_t pix = static_cast<size_t>(t) * P + p;
+    const int x = L::x(warp, lane, q), y = L::y(warp, lane, q);
+    px[q] = static_cast<float>(tx0 + x) + 0.5f;
+    py[q] = static_cast<float>(ty0 + y) + 0.5f;
+    const size_t pix = static_cast<size_t>(t) * P + y * L::kTile + x;
     const float4 g0 = *reinterpret_cast<const float4*>(gout + pix * 8);
     const float g4 = gout[pix * 8 + 4];
     const float4 o0 = *reinterpret_cast<const float4*>(out + pix * 8);
@@ -117,14 +132,22 @@ __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(
     const int n = min(chunk, cnt - j * chunk);
     const long long base = static_cast<long long>(seg0) + static_cast<long long>(j) * chunk;
     if (threadIdx.x < n) {
-      stage_features(flat, is_bf16, stride, base + threadIdx.x, s_feat, threadIdx.x);
+      stage_instance(flat, is_bf16, stride, base + threadIdx.x, s_feat, s_box, threadIdx.x);
     }
     __syncthreads();
 
     for (int b0 = 0; b0 < n; b0 += kBatch) {
       const int m = min(kBatch, n - b0);
-      if (__any_sync(kFullMask, thread_live)) {
-        for (int c = b0; c < b0 + m; ++c) {
+      for (int r0 = b0; r0 < b0 + m && __any_sync(kFullMask, thread_live); r0 += 32) {
+        // which of these 32 instances meet which of the warp's sub-rectangles
+        const unsigned mine =
+            r0 + lane < b0 + m ? subrect_mask<PPT>(s_box, r0 + lane, rx0, ry0) : 0u;
+        unsigned bits = __ballot_sync(kFullMask, mine != 0u);
+        while (bits != 0u) {
+          const int k = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const unsigned qmask = PPT == 1 ? 1u : __shfl_sync(kFullMask, mine, k);
+          const int c = r0 + k;
           const float mx = s_feat[0][c], my = s_feat[1][c];
           const float ca = s_feat[2][c], cb = s_feat[3][c], cc = s_feat[4][c];
           const float op = s_feat[5][c];
@@ -134,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) blend_bwd_kernel(
           bool used = false;
 #pragma unroll
           for (int q = 0; q < PPT; ++q) {
-            if (!live[q]) continue;
+            if (!live[q] || !((qmask >> q) & 1u)) continue;
             const float dx = mx - px[q];
             const float dy = my - py[q];
             const float sigma = 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
@@ -216,15 +239,14 @@ extern "C" int tpu_splat_blend_bwd(const void* flat, int is_bf16, long long stri
   if (chunk <= 0 || chunk > kMaxChunk || max_chunks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int p = tile_size * tile_size;
-  if (p == kThreads) {
+  if (tile_size == Layout<1>::kTile) {
     blend_bwd_kernel<1><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks,
-        chk, out, gout, gflat, gstride);
-  } else if (p == 4 * kThreads) {
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, chk, out,
+        gout, gflat, gstride);
+  } else if (tile_size == Layout<4>::kTile) {
     blend_bwd_kernel<4><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_size, chunk, max_chunks,
-        chk, out, gout, gflat, gstride);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, chk, out,
+        gout, gflat, gstride);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

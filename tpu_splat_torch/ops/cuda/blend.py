@@ -26,9 +26,16 @@ The wrappers launch `csrc/blend_fwd.cu` / `csrc/blend_bwd.cu` on a CUDA tensor a
 plain versions (`*_plain`) on a CPU tensor. The plain versions are the chunked closed
 form of `tpu_splat/ops/blend.py` (cumprod of 1 - alpha within each chunk) vectorised over
 batches of tiles; they keep no autograd graph.
+
+Both kernels cull: a warp evaluates an instance only on those of its 8x4-pixel
+sub-rectangles that the instance's widened 1/255 box meets (`csrc/blend_common.cuh`).
+`cull_boxes` and `cull_keep` are the plain twins of that box and test; the wrappers do not
+call them (the cull changes no output), tests and chip_smoke.py do.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -116,6 +123,54 @@ def _chunk_alphas(feat, seg_start, count, j, chunk, px, py):
     valid = lane_valid[:, :, None] & (sigma >= 0.0) & (alpha >= MIN_ALPHA)
     a = torch.where(valid, alpha, 0.0)
     return f, idx, lane_valid, dx, dy, gauss, a, valid
+
+
+# margins of the kernels' cull box (csrc/blend_common.cuh, which states their reasons)
+CULL_ABS, CULL_ULPS, CULL_REL, CULL_PX = 1e-5, 5.0, 1e-3, 1.0 / 64.0
+SUB_W, SUB_H = 8, 4  # a warp's sub-rectangle in the kernels: one pixel a lane
+
+
+def _to_f32(x: torch.Tensor, direction: float) -> torch.Tensor:
+    """float64 -> float32 rounded towards `direction` (-inf or +inf)."""
+    f = x.to(torch.float32)
+    off = f.double() > x if direction < 0 else f.double() < x
+    return torch.where(off, torch.nextafter(f, torch.full_like(f, direction)), f)
+
+
+@torch.no_grad()
+def cull_boxes(feat: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the kernels' cull box (`blend_common.cuh::cull_box`): from the float32
+    rows mx, my, ca, cb, cc, op [>=6, ...] the box [4, ...] = (x lo, x hi, y lo, y hi) of
+    the pixel centres an instance can pass the alpha test at, widened by the kernels'
+    margins. Empty (lo = +inf, hi = -inf) where op < 1/255; everything (-inf, +inf) for a
+    conic that is not positive definite, K too large, or any NaN / Inf."""
+    mx, my, ca, cb, cc, op = (feat[i].double() for i in range(F_OP + 1))
+    s = torch.log(op / float(torch.tensor(MIN_ALPHA, dtype=torch.float32))) + CULL_ABS
+    det = ca * cc - cb * cb  # the products are exact in float64: its sign is right
+    lmax = 0.5 * (ca + cc) + torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb)
+    shrink = 1.0 - CULL_ULPS * 2.0 ** -24 * (lmax * lmax / det)
+    finite = torch.stack([torch.isfinite(v) for v in (mx, my, ca, cb, cc)]).all(0)
+    bounded = (s < 1e300) & finite & (ca > 0) & (cc > 0) & (det > 0) & (shrink >= 0.5)
+    level = 2.0 * s / shrink
+    rx = torch.sqrt(level * cc / det) * (1.0 + CULL_REL) + CULL_PX
+    ry = torch.sqrt(level * ca / det) * (1.0 + CULL_REL) + CULL_PX
+    box = torch.stack([_to_f32(mx - rx, -math.inf), _to_f32(mx + rx, math.inf),
+                       _to_f32(my - ry, -math.inf), _to_f32(my + ry, math.inf)])
+    every = torch.tensor([-math.inf, math.inf] * 2, device=box.device).view(4, *[1] * s.dim())
+    box = torch.where(bounded, box, every)
+    return torch.where(s < 0, -every, box)  # empty
+
+
+def cull_keep(box: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the kernels' cull test (`blend_common.cuh::subrect_mask`): True where
+    the pair of an instance of box [4, ...] and the pixel centre (px, py) survives, i.e.
+    the box meets the pixel's cell of the image's 8x4 grid (the warp sub-rectangle that
+    holds it). Culls only what is clearly outside: a NaN bound keeps the pair."""
+    x0 = torch.floor(px / SUB_W) * SUB_W + 0.5
+    y0 = torch.floor(py / SUB_H) * SUB_H + 0.5
+    out = ((box[1] < x0) | (box[0] > x0 + (SUB_W - 1)) | (box[3] < y0)
+           | (box[2] > y0 + (SUB_H - 1)))
+    return ~out
 
 
 def composite_chunk(a, valid, t_run, dead):
