@@ -36,8 +36,8 @@ import numpy as np
 NAMES = ("blend_fwd", "blend_bwd")
 
 
-def build_bases(srcs: list[Path]) -> list[tuple[dict, str]]:
-    """Build each BASE_CSRC's blend kernels into build/ab/<i>/, one nvcc a source, all at
+def build_bases(srcs: list[Path], names=NAMES) -> list[tuple[dict, str]]:
+    """Build each BASE_CSRC's kernels `names` into build/ab/<i>/, one nvcc a source, all at
     once. -> [({name: ctypes fn}, ptxas log)] in the order of `srcs`"""
     from tpu_splat_torch.ops.cuda import build
 
@@ -48,7 +48,7 @@ def build_bases(srcs: list[Path]) -> list[tuple[dict, str]]:
         procs.append({name: (out_dir / f"{name}.so", subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
              str(src / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)) for name in NAMES})
+            text=True)) for name in names})
     bases = []
     for src, libs in zip(srcs, procs):
         fns, log = {}, ""

@@ -15,7 +15,11 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    (the zero checkpoints and the pair counts of `blend_pairs`) equal to the plain
    version's, K3 bit-equal on two launches; K4 (10 and 17 rows) and K7 (10 and 17 rows) on
    random runs with empty runs and one run of 300,000 slots; K5 and K6 on random
-   unaligned segments with rays 4 and 8 wide;
+   unaligned segments with rays 4 and 8 wide, and on segments whose splats graze the
+   kernels' warp ray cones (opacities near 1/255 among them) through a distorted pinhole,
+   a fisheye, an ortho and a rolling-shutter camera (`gut_border_segments`): K5's stop
+   decisions and pair counts (walked, kept by the cull, used, stops) equal to the plain
+   version's, K6 bit-equal on two launches;
 4. drives the render path: `render_view` of a 1,000,000-Gaussian SH-degree-3 scene at
    1296x840 (the distributions of bench.py::build_workload, seed 0) with every launch
    count set to 0 just before and read just after; checks the aux counters, a finite
@@ -38,14 +42,18 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    stages (CUDA events);
 9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
    distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
-   rolling-shutter camera at half the size, kernels against plain versions; 20 GUT
+   rolling-shutter camera at half the size, kernels against plain versions, and K5/K6
+   with their stop decisions and pair counts at the frame's and the fisheye frame's own
+   inputs; 20 GUT
    `train_step`s (`StepConfig(gut=True)`), the last six through the K7 lane, with every
    launch count set to 0 just before and read just after: K1, K5, K6 once a step and K4 or
    K7 once a step; the six parameter gradients of `rasterize_gut` under both reduction
-   lanes; K5, K6, K7 and 17-row K4 against their plain versions on the step's own inputs,
-   their times, the GUT frame's time and the GUT step's stage split;
+   lanes; K5 (with its stop decisions and pair counts), K6 (and its repeatability), K7
+   and 17-row K4 against their plain versions on the step's own inputs, their times, the
+   GUT frame's time and the GUT step's stage split;
 10. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
-   counts), a `frame` JSON line (frame ms and per-stage split), a `train` JSON line (step
+   counts; K5 and K6 with their pair counts and ptxas' registers and spills), a `frame`
+   JSON line (frame ms and per-stage split), a `train` JSON line (step
    ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
    step) and, last, {"ok": true, "device": {...}}.
 
@@ -84,9 +92,10 @@ K2_OPS_PER_PAIR = 21
 # dL/dsigma 2, the ten products with their pixel sums 5+5+4+3+4+2+2+2+2+2
 K3_OPS_PER_USED_PAIR = 47
 # K5, counted from gut_blend_forward_plain: v = M d 15, |v|^2 5, max/sqrt/divide 3, n 3,
-# the cross product 9, power 6, exp/alpha/min/test 4, compositing 4
+# the cross product 9, power 6, exp/alpha/min/test 4, compositing 4; for each pair the data
+# needs (used + stops of `gut_blend_pairs`), as K2's
 K5_OPS_PER_PAIR = 49
-# K6, counted from gut_blend_backward_plain: a pair that is evaluated costs the forward's 49;
+# K6, counted from gut_blend_backward_plain: a needed pair costs the forward's 49;
 # a pair that is used costs 83 more: w 2, g.col 7, running sum and suffix 3, dL/da 3 (one a
 # divide), dL/dpow and d/dop 4, dL/dc 3, the two cross products 18, n.dn 5, dL/dv 9, the
 # nine outer products with their pixel sums 18, gro sums 3, colour and depth sums 8
@@ -153,6 +162,34 @@ def ptxas_lines(log: str) -> list[str]:
     """The lines of an nvcc -Xptxas -v log that name a kernel, its registers, its spills."""
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each kernel instantiation in an nvcc -Xptxas -v log,
+    keyed by the kernel's name and its template arguments (tile 16 / 32 for PPT 1 / 4,
+    rays 4 / 8 for ORIGIN false / true): {"gut_fwd_kernel tile32-rays4": {"registers": 88,
+    "spill_stores": 0, "spill_loads": 0}, ...}."""
+    import re
+
+    out, key, entry = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1)
+            t = re.search(r"([a-z][a-z_]*_kernel)ILi(\d)ELb(\d)E", entry)
+            key = (f"{t.group(1)} tile{16 if t.group(2) == '1' else 32}-rays"
+                   f"{8 if t.group(3) == '1' else 4}" if t else entry)
+            out[key] = {}
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m and m.group(1) != entry:  # a device function the kernel calls, not the kernel
+            key = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and key:
+            out[key].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key:
+            out[key]["registers"] = int(m.group(1))
+    return out
 
 
 def max_err(a, b) -> float:
@@ -316,6 +353,154 @@ def random_gut_segments(tile_size: int, chunk: int, seed: int, dev, ray_width: i
             torch.from_numpy(rays).to(dev), as_i32(seg_start), as_i32(count)), kw
 
 
+MIN_ALPHA_F32 = float(np.float32(1.0 / 255.0))
+
+
+def gut_camera_rays(model: str, grid_w: int, grid_h: int, tile_size: int):
+    """World rays [T, P, 4|8] (on the CPU) of a grid_w x grid_h grid of tiles seen by a
+    tilted camera off the origin through one of the GUT camera models: "pinhole" (radial
+    and tangential distortion), "fisheye" (the image corners at 98% of its max_angle),
+    "ortho" (rays 8 wide), "rolling" (a distorted pinhole with a top-to-bottom rolling
+    shutter, rays 8 wide). -> (rays, camera position [3], focal length in px)"""
+    import torch
+
+    from tpu_splat_torch.ops.cameras import CameraParams, fisheye_max_angle
+    from tpu_splat_torch.ops.gut import pixel_world_rays
+
+    width, height = grid_w * tile_size, grid_h * tile_size
+    ang = 0.3
+    rot = np.array([[math.cos(ang), 0, math.sin(ang)], [0, 1, 0],
+                    [-math.sin(ang), 0, math.cos(ang)]], np.float32)
+    cam_pos = np.array([0.4, -0.2, -1.0], np.float32)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3], w2c[:3, 3] = rot, -rot @ cam_pos
+    params = CameraParams(radial=(0.1, -0.02, 0, 0, 0, 0), tangential=(1e-3, -2e-3))
+    pose, max_angle, focal = None, None, 0.9 * width
+    if model == "fisheye":
+        params = CameraParams(model="fisheye", radial=(-0.05, 0, 0, 0, 0, 0))
+        max_angle = fisheye_max_angle(params)
+        theta = 0.98 * max_angle
+        focal = math.hypot(width, height) / 2 / (theta * (1 - 0.05 * theta ** 2))
+    elif model == "ortho":
+        params, focal = CameraParams(model="ortho"), width / 3.0
+    elif model == "rolling":
+        params = CameraParams(radial=(0.05, 0, 0, 0, 0, 0), shutter="top_to_bottom")
+        q0 = torch.tensor([math.cos(ang / 2), 0, -math.sin(ang / 2), 0])  # w2c, wxyz
+        q1 = torch.tensor([math.cos(ang / 2 + 0.02), 0.01, -math.sin(ang / 2 + 0.02), 0])
+        t0 = torch.from_numpy(w2c[:3, 3])
+        pose = (q0, t0, q1 / torch.linalg.vector_norm(q1), t0 + torch.tensor([0.05, 0.02, 0]))
+    rays = pixel_world_rays(torch.from_numpy(w2c), torch.from_numpy(cam_pos), focal, focal,
+                            width / 2.0, height / 2.0, params, max_angle, pose, grid_w=grid_w,
+                            grid_h=grid_h, tile_size=tile_size, width=width, height=height)
+    return rays, cam_pos, focal
+
+
+def rotations(rng, n: int, first_axis=None):
+    """Random rotation matrices [n, 3, 3]; with `first_axis` [n, 3] (unit) their first
+    column is that axis."""
+    q = rng.normal(0, 1, (n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    rot = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                    2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                    2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                   1).reshape(n, 3, 3)
+    if first_axis is not None:  # Gram-Schmidt against the given axis
+        b = rot[:, :, 1] - np.sum(rot[:, :, 1] * first_axis, 1, keepdims=True) * first_axis
+        b /= np.linalg.norm(b, axis=1, keepdims=True)
+        rot = np.stack([first_axis, b, np.cross(first_axis, b)], axis=2)
+    return rot
+
+
+def gut_table(mean, scales, rot, op, cam_pos, rng):
+    """G_* rows [17, n] float32 of Gaussians: M = S^-1 R^T, gro = M (cam_pos - mean),
+    opacity, random rgb, depth |mean - cam_pos|."""
+    mat = rot.transpose(0, 2, 1) / scales[:, :, None]
+    gro = np.einsum("nij,nj->ni", mat, cam_pos[None, :] - mean)
+    n = len(op)
+    depth = np.linalg.norm(mean - cam_pos[None, :], axis=1, keepdims=True)
+    return np.concatenate([mat.reshape(n, 9), gro, op[:, None], rng.uniform(0, 1, (n, 3)),
+                           depth], 1).T.astype(np.float32)
+
+
+def gut_grazing_splats(rng, rays, cam_pos, focal, tile, cell, lane, ortho: bool):
+    """Splats whose 1/255 ellipsoid grazes, from outside the cone of its 8x4 sub-rectangle,
+    the ray of pixel `lane` of cell `cell` of tile `tile` (arrays of one entry a splat),
+    within a relative 1e-3 to 1e-7 of the level; the grazing axis is the splat's longest,
+    so the kernels' sphere is tight there. -> (flat [17, n] numpy, the grazed pixel's index
+    in its tile)"""
+    from tpu_splat_torch.ops.cuda.gut_kernels import gut_cull_cells, gut_cull_cones
+
+    n = len(tile)
+    tile_size = int(round(math.sqrt(rays.shape[1])))
+    pix = gut_cull_cells(tile_size).numpy()[cell, lane]
+    r = rays.double().numpy()[tile, pix]
+    d = r[:, :3] / np.linalg.norm(r[:, :3], axis=1, keepdims=True)
+    origin = cam_pos[None, :] + (r[:, 4:7] if r.shape[1] == 8 else 0.0)
+    axis = gut_cull_cones(rays, tile_size)[0].double().numpy()[tile, cell, :3]
+    w = rng.normal(0, 1, (n, 3)) if ortho else d - axis  # away from the cone's axis
+    w -= np.sum(w * d, 1, keepdims=True) * d
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    depth = rng.uniform(1.0, 8.0, n)
+    sigma = (1.0 if ortho else depth) / focal * rng.uniform(1.0, 6.0, n)
+    scales = sigma[:, None] * np.stack([np.ones(n), *rng.uniform(0.005, 1.0, (2, n))], 1)
+    rot = rotations(rng, n, first_axis=w)
+    op = rng.uniform(MIN_ALPHA_F32, 1.0, n)
+    low = rng.random(n) < 1 / 3  # a third within 1e-4 below to 1e-2 above 1/255
+    op[low] = MIN_ALPHA_F32 * rng.uniform(1 - 1e-4, 1 + 1e-2, int(low.sum()))
+    mat = rot.transpose(0, 2, 1) / scales[:, :, None]
+    nv = np.einsum("nij,nj->ni", mat, d)
+    nv /= np.linalg.norm(nv, axis=1, keepdims=True)
+    reach = np.linalg.norm(np.cross(nv, np.einsum("nij,nj->ni", mat, w)), axis=1)
+    jitter = rng.uniform(-1, 1, n) * rng.choice([1e-3, 1e-5, 1e-7], n)
+    level = np.sqrt(2 * np.log(np.maximum(op / MIN_ALPHA_F32, 1.0)))
+    lam = level * (1 + jitter) / reach
+    mean = origin + depth[:, None] * d + lam[:, None] * w
+    return gut_table(mean, scales, rot, op, cam_pos, rng), pix
+
+
+def gut_border_segments(model: str, tile_size: int, chunk: int, seed: int, dev,
+                        grid=(8, 6)):
+    """World-ray blend inputs on the borders of the GUT kernels' warp ray cones, through
+    `model` (`gut_camera_rays`): unaligned contiguous segments with gaps, up to 4 chunks
+    per tile; three quarters of a tile's splats graze the cone of one of its 8x4
+    sub-rectangles at a corner pixel's ray (`gut_grazing_splats`: a third of those with an
+    opacity within 1e-4 below to 1e-2 above 1/255), the rest are opaque splats on random
+    pixels' rays, so that many pixels stop. -> ((flat [17, M], rays, seg_start, count), kw)"""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    gw, gh = grid
+    max_chunks = 4
+    n_tiles = gw * gh
+    rays, cam_pos, focal = gut_camera_rays(model, gw, gh, tile_size)
+    count = rng.integers(0, max_chunks * chunk + 1, n_tiles)
+    count[:3] = (0, 1, max_chunks * chunk)
+    seg_start = np.cumsum(rng.integers(0, 200, n_tiles)) + np.concatenate(
+        [[0], np.cumsum(count)[:-1]])
+    m = int(seg_start[-1] + count[-1])
+    tile_of = np.zeros(m, np.int64)
+    for t in range(n_tiles):
+        tile_of[seg_start[t]:seg_start[t] + count[t]] = t
+    n_cells = tile_size * tile_size // 32
+    flat, _ = gut_grazing_splats(rng, rays, cam_pos, focal, tile_of, rng.integers(0, n_cells, m),
+                                 rng.choice([0, 7, 24, 31], m), model == "ortho")
+    opaque = rng.random(m) < 0.25
+    r = rays.double().numpy()[tile_of, rng.integers(0, rays.shape[1], m)][opaque]
+    d = r[:, :3] / np.linalg.norm(r[:, :3], axis=1, keepdims=True)
+    k = int(opaque.sum())
+    depth = rng.uniform(1.0, 8.0, k)
+    sigma = (1.0 if model == "ortho" else depth) / focal * rng.uniform(2.0, 8.0, k)
+    origin = cam_pos[None, :] + (r[:, 4:7] if r.shape[1] == 8 else 0.0)
+    mean = origin + depth[:, None] * d + rng.normal(0, 1, (k, 3)) * sigma[:, None]
+    flat[:, opaque] = gut_table(mean, sigma[:, None] * rng.uniform(0.5, 1.0, (k, 3)),
+                                rotations(rng, k), rng.uniform(0.5, 1.0, k), cam_pos, rng)
+    as_i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    kw = dict(n_tiles=n_tiles, tile_size=tile_size, max_chunks=max_chunks, chunk=chunk)
+    return (torch.from_numpy(np.ascontiguousarray(flat)).to(dev), rays.to(dev),
+            as_i32(seg_start), as_i32(count)), kw
+
+
 def blend_pairs(flat, seg_start, count, chk, *, n_tiles, grid_w, tile_size, max_chunks,
                 chunk) -> dict:
     """(pixel, instance) pair counts of the blend on these inputs, from the checkpoints
@@ -395,28 +580,52 @@ def _blend_pairs_of(flat, seg_start, cnt, chk, px, py, lane, chunk, max_chunks):
 
 
 def gut_blend_pairs(flat, rays, seg_start, count, chk, *, n_tiles, tile_size, max_chunks,
-                    chunk) -> tuple[int, int]:
-    """`blend_pairs` for the world-ray blend: the (pixel, instance) pairs K5 must evaluate
-    on these inputs, and how many of them it uses."""
+                    chunk) -> dict:
+    """`blend_pairs` for the world-ray blend, from the checkpoints `chk`: the pairs a walk
+    without a cull evaluates (walked), those the kernels' cull keeps (kept: the sphere of
+    `gut_cull_spheres` may meet the cone of `gut_cull_cones` of the pixel's 8x4
+    sub-rectangle), the used pairs and the stopping pairs."""
     import torch
 
-    from tpu_splat_torch.ops.cuda.gut_kernels import ray_columns, ray_response
+    from tpu_splat_torch.ops.cuda.gut_kernels import (gut_cull_cones, gut_cull_keep,
+                                                      gut_cull_spheres, ray_columns,
+                                                      ray_response)
 
     lane = torch.arange(chunk, device=flat.device)
-    total = used = 0
+    counts = dict(walked=0, kept=0, used=0, stops=0)
     step = max(1, (1 << 24) // (chunk * tile_size * tile_size))
     for t0 in range(0, n_tiles, step):
         start = seg_start[t0:t0 + step].long()
         cnt = count[t0:t0 + step].clamp(0, max_chunks * chunk).long()
         d, do = ray_columns(rays[t0:t0 + step])
+        cones, do_max = gut_cull_cones(rays[t0:t0 + step], tile_size)
         for j in range(max_chunks):
             t_entry = chk[t0:t0 + step, :, j]
             if not bool((t_entry > 0).any()):
                 break
-            _, _, lane_valid, a, valid, _ = ray_response(flat, d, do, start, cnt, j, chunk)
-            part = _count_pairs(a, valid, t_entry, lane_valid.sum(1), lane, chunk)
-            total, used = total + part["walked"], used + part["used"]
-    return total, used
+            f, _, lane_valid, a, valid, _ = ray_response(flat, d, do, start, cnt, j, chunk)
+            keep = gut_cull_keep(gut_cull_spheres(f, do_max[:, None]), cones, tile_size)
+            part = _count_pairs(a, valid, t_entry, lane_valid.sum(1), lane, chunk, keep)
+            counts = {k: v + part[k] for k, v in counts.items()}
+    return counts
+
+
+def check_gut_stops(chk, chk_plain, args, kw, label: str) -> dict:
+    """Stop decisions of K5 against its plain version: the same (pixel, chunk) entries of
+    `chk` are 0, and the checkpoints give the same pair counts (`gut_blend_pairs`).
+    -> the counts."""
+    import torch
+
+    require(torch.equal(chk == 0, chk_plain == 0),
+            f"{label}: {int(((chk == 0) != (chk_plain == 0)).sum())} (pixel, chunk) "
+            "checkpoints are 0 on one side only")
+    got = gut_blend_pairs(*args, chk, **kw)
+    want = gut_blend_pairs(*args, chk_plain, **kw)
+    require(got == want, f"{label}: pair counts {got} against the plain version's {want}")
+    # a used or stopping pair passed the alpha test: the cull must have kept it
+    require(want["kept"] >= want["used"] + want["stops"],
+            f"{label}: the cull keeps fewer pairs than are used: {want}")
+    return want
 
 
 def train_setup(params, focal, dev, cam_params=None):
@@ -553,6 +762,67 @@ def check_prefix(got, want, rows, rank, label: str) -> float:
     return max_err(got, want)
 
 
+def check_gut_kernels(args, kw, label: str, seed: int = 3):
+    """K5 and K6 against their plain versions on one input: K5's out and chk (`check_blend`),
+    its stop decisions and pair counts (`check_gut_stops`); K6 within `check_blend_bwd`'s
+    tolerance of its plain version for a random `gout`, and the same bits on two launches.
+    -> (K5 max abs error, K6 relative error, pair counts)"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
+                                                      gut_blend_backward_plain,
+                                                      gut_blend_forward,
+                                                      gut_blend_forward_plain)
+
+    dev = args[0].device
+    fwd = gut_blend_forward(*args, **kw)
+    fwd_plain = gut_blend_forward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    k5_err = check_blend(fwd, fwd_plain, f"{label} K5")
+    pairs = check_gut_stops(fwd[1], fwd_plain[1], args, kw, f"{label} K5")
+    gout = 0.3 * torch.randn(fwd[0].shape, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(seed))
+    owned = torch.zeros(args[0].shape[1], dtype=torch.bool, device=dev)
+    for s0, c in zip(args[2].tolist(), args[3].tolist()):
+        owned[s0:s0 + c] = True
+    bwd = (*args, fwd[1], fwd[0], gout)
+    gflat = gut_blend_backward(*bwd, **kw)
+    gflat_plain = gut_blend_backward_plain(*bwd, **kw)
+    torch.cuda.synchronize()
+    k6_err = check_blend_bwd(gflat, gflat_plain, owned, f"{label} K6")
+    check_blend_bwd_repeats(gut_blend_backward, *bwd, label=f"{label} K6", **kw)
+    return k5_err, k6_err, pairs
+
+
+def gut_kernel_inputs(sp, cam, cam_params, *, width, height, tile_size, max_instances,
+                      k_max, sh_degree, dev):
+    """K5's and K6's inputs for the splat `sp` seen by `cam` through `cam_params` (global
+    shutter), as `rasterize_gut` builds them (chunk 128). -> (inst, (flat, rays, seg_start,
+    count), kw)"""
+    import torch
+
+    from tpu_splat_torch.ops.cameras import fisheye_max_angle
+    from tpu_splat_torch.ops.cuda.gut_kernels import gut_blend_inputs
+    from tpu_splat_torch.ops.cuda.raster import build_sorted_instances
+    from tpu_splat_torch.ops.gut import gut_feature_table, pixel_world_rays, ut_project
+
+    gw, gh = -(-width // tile_size), -(-height // tile_size)
+    w2c, pos = torch.as_tensor(cam[0], device=dev), torch.as_tensor(cam[1], device=dev)
+    max_angle = fisheye_max_angle(cam_params) if cam_params.model == "fisheye" else None
+    with torch.no_grad():
+        proj, comp = ut_project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
+                                sp.alive, w2c, *cam[2:], cam_params, width, height, tile_size,
+                                max_angle)
+        inst = build_sorted_instances(proj, gw, gh, max_instances, tile_size)
+        rays = pixel_world_rays(w2c, pos, *cam[2:], cam_params, max_angle, None, grid_w=gw,
+                                grid_h=gh, tile_size=tile_size, width=width, height=height)
+        gtab = gut_feature_table(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
+                                 sp.sh0, sp.shN, pos, sh_degree, proj, comp)
+        flat, seg, cnt, max_chunks = gut_blend_inputs(inst, gtab, k_max=k_max, chunk=CHUNK_GUT)
+    kw = dict(n_tiles=gw * gh, tile_size=tile_size, max_chunks=max_chunks, chunk=CHUNK_GUT)
+    return inst, (flat, rays, seg, cnt), kw
+
+
 def gut_phases(params, focal, dev, counted, kernels) -> dict:
     """The GUT camera path on the card: frames of three camera models through the kernels
     against the plain versions, gradients under both reduction lanes, GUT train steps with
@@ -562,6 +832,7 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     import torch
 
     from tpu_splat_torch.ops.cameras import CameraParams
+    from tpu_splat_torch.ops.cuda import build
     from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
                                                       gut_blend_backward_plain,
                                                       gut_blend_forward,
@@ -622,6 +893,23 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         shutter_pose=pose)
     phase("gut-frames", frame=dict(frame_aux, **frame_err), fisheye=dict(fish_aux, **fish_err),
           rolling=dict(roll_aux, **roll_err))
+
+    # -- K5 and K6 at the GUT frame's own inputs (SH degree 3) and at the fisheye frame's
+    # (tile 16): kernels against plain versions, stop decisions and pair counts
+    fish_params = CameraParams(model="fisheye", radial=(0.05, -0.01, 0.0, 0.0, 0.0, 0.0))
+    frame_k = {}
+    for label, cam_args, cparams, kw in (("frame", cam, cam_params, ras_kw),
+                                         ("fisheye", half_cam, fish_params,
+                                          dict(half, tile_size=16))):
+        _, args, kkw = gut_kernel_inputs(
+            sp0, cam_args, cparams, width=kw["width"], height=kw["height"],
+            tile_size=kw["tile_size"], max_instances=kw["max_instances"], k_max=kw["k_max"],
+            sh_degree=3, dev=dev)
+        k5_err, k6_err, pairs = check_gut_kernels(args, kkw, f"GUT {label}")
+        frame_k[label] = dict(k5_max_abs_err=k5_err, k6_rel_err=k6_err, pairs=pairs)
+        del args
+    phase("gut-frame-kernels", **frame_k)
+    torch.cuda.empty_cache()
 
     # -- the main path of this slice: GUT train steps, launches counted
     for fn in counted:
@@ -694,18 +982,14 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     w2c_t, pos_t = torch.as_tensor(cam[0], device=dev), torch.zeros(3, device=dev)
     intr = cam[2:]
     ray_kw = dict(grid_w=gw, grid_h=gh, tile_size=TILE_T, width=WIDTH, height=HEIGHT)
-    with torch.no_grad():
-        proj, comp = ut_project(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
-                                sp.alive, w2c_t, *intr, cam_params, WIDTH, HEIGHT, TILE_T, None)
-        inst = build_sorted_instances(proj, gw, gh, plan.max_instances, TILE_T)
-        rays = pixel_world_rays(w2c_t, pos_t, *intr, cam_params, None, None, **ray_kw)
-        gtab = gut_feature_table(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw,
-                                 sp.sh0, sp.shN, pos_t, 0, proj, comp)
-        flat, seg, cnt, maxc = gut_blend_inputs(inst, gtab, k_max=plan.k_max, chunk=CHUNK_GUT)
-    kkw = dict(n_tiles=n_tiles, tile_size=TILE_T, max_chunks=maxc, chunk=CHUNK_GUT)
+    inst, (flat, rays, seg, cnt), kkw = gut_kernel_inputs(
+        sp, cam, cam_params, width=WIDTH, height=HEIGHT, tile_size=TILE_T,
+        max_instances=plan.max_instances, k_max=plan.k_max, sh_degree=0, dev=dev)
+    maxc = kkw["max_chunks"]
     k5 = gut_blend_forward(flat, rays, seg, cnt, **kkw)
     k5_plain = gut_blend_forward_plain(flat, rays, seg, cnt, **kkw)
     k5_err = check_blend(k5, k5_plain, "K5 train frame")
+    pairs = check_gut_stops(k5[1], k5_plain[1], (flat, rays, seg, cnt), kkw, "K5 train frame")
     gout = torch.randn(k5[0].shape, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(8)) / (3 * WIDTH * HEIGHT)
     bwd = (flat, rays, seg, cnt, k5[1], k5[0], gout)
@@ -716,6 +1000,7 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     require(n_valid == int(inst.total_instances), ("a GUT rect tile was culled", n_valid))
     owned = torch.arange(flat.shape[1], device=dev) < n_valid  # segments lie back to back
     k6_err = check_blend_bwd(k6, k6_plain, owned, "K6 train frame")
+    check_blend_bwd_repeats(gut_blend_backward, *bwd, label="K6 train frame", **kkw)
     rows = emission_order(k6, inst.sorted_emis)
     k4_in = (rows, inst.emis_start, inst.emis_end)
     k4 = segsum_emission(*k4_in)
@@ -744,18 +1029,19 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     check_segsum(library_segsum(), k4_plain, *k4_in, "K4 17-row library yardstick")
     k4_lib_ms = cuda_ms(library_segsum, 20)
 
-    pairs, used = gut_blend_pairs(flat, rays, seg, cnt, k5_plain[1], **kkw)
     n_slots, m = int(inst.total_instances), rows.shape[1]
     tp = n_tiles * TILE_T * TILE_T
     k5_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (8 + maxc)
     k6_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (16 + maxc) + 68 * n_valid
-    k6_ops = K5_OPS_PER_PAIR * pairs + K6_OPS_PER_USED_PAIR * used
+    k5_ops = K5_OPS_PER_PAIR * (pairs["used"] + pairs["stops"])
+    k6_ops = k5_ops + K6_OPS_PER_USED_PAIR * pairs["used"]
     k7_bytes = 2 * 4 * 17 * m + 4 * m
     k4_bytes = 68 * n_slots + 76 * n_gauss
     shapes = f"GUT train step, tile 32, chunk {CHUNK_GUT}, rays 4 wide"
+    regs = {name: ptxas_summary(build.build_log(name)) for name in ("gut_fwd", "gut_bwd")}
     for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
         ("gut_fwd", "gut_fwd.cu", "gut_kernels.py:108", "gut_blend_forward", k5_err, k5_ms,
-         k5_plain_ms, bound_ms(k5_bytes, K5_OPS_PER_PAIR * pairs), None),
+         k5_plain_ms, bound_ms(k5_bytes, k5_ops), None),
         ("gut_bwd", "gut_bwd.cu", "gut_kernels.py:243", "gut_blend_backward", k6_err, k6_ms,
          k6_plain_ms, bound_ms(k6_bytes, k6_ops), None),
         ("segprefix", "segprefix.cu", "raster.py:454", "segred_prefix", k7_err, k7_ms,
@@ -768,11 +1054,18 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
             replaces=f"tpu_splat/ops/pallas/{replaces}", launches=launches[fn_name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib))
-    phase("gut-kernel-times", k5_bytes=k5_bytes, k6_bytes=k6_bytes, k6_ops=k6_ops,
-          k7_bytes=k7_bytes, k4_17_bytes=k4_bytes, pairs=pairs, used_pairs=used,
+        if name in regs:
+            kernels[-1].update(pairs=pairs, ptxas=regs[name])
+    # the bounds of a kernel without a cull, which evaluates every walked pair
+    walked_bound_ms = dict(gut_fwd=bound_ms(k5_bytes, K5_OPS_PER_PAIR * pairs["walked"])[0],
+                           gut_bwd=bound_ms(k6_bytes, K5_OPS_PER_PAIR * pairs["walked"]
+                                            + K6_OPS_PER_USED_PAIR * pairs["used"])[0])
+    phase("gut-kernel-times", k5_bytes=k5_bytes, k6_bytes=k6_bytes, k5_ops=k5_ops,
+          k6_ops=k6_ops, walked_bound_ms=walked_bound_ms,
+          k7_bytes=k7_bytes, k4_17_bytes=k4_bytes, pairs=pairs,
           tile_instances=n_valid, emission_slots=n_slots, slots=m, k6_rel_err=k6_err,
           k7_max_abs_err=k7_err, k4_17_max_abs_err=k4_err)
-    del k5, k5_plain, k6, k6_plain, k4, k4_plain, k7, k7_plain, rows, bwd, gout, flat, gtab
+    del k5, k5_plain, k6, k6_plain, k4, k4_plain, k7, k7_plain, rows, bwd, gout, flat
     torch.cuda.empty_cache()
 
     # -- the GUT frame's time (no gradient) and the step's split: the stages of
@@ -852,7 +1145,7 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         max_tile_count=max(ktiles), frame=dict(frame_aux, **frame_err),
         fisheye_frame=dict(fish_aux, **fish_err), rolling_frame=dict(roll_aux, **roll_err),
         loss_first=losses[0], loss_last=losses[-1], loss_first5=first5, loss_last5=last5,
-        gradient_rel_err=grad_err)
+        gradient_rel_err=grad_err, step_pairs=pairs, frame_kernels=frame_k, ptxas=regs)
 
 
 def main() -> int:
@@ -985,32 +1278,19 @@ def main() -> int:
     del rows_r, got, want, k4_17_args
 
     # -- K5 and K6 against their plain versions on random unaligned segments, rays 4 and 8
-    # wide (8: per-pixel origin offsets)
+    # wide (8: per-pixel origin offsets), and on segments whose splats graze the kernels'
+    # warp ray cones through the four GUT camera models
     k5_random_err = k6_random_err = 0.0
-    for ts, ch, seed in ((16, 128, 11), (32, 256, 12)):
-        for ray_width in (4, 8):
-            args, kw = random_gut_segments(ts, ch, seed, dev, ray_width)
-            fwd = gut_blend_forward(*args, **kw)
-            fwd_plain = gut_blend_forward_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = check_blend(fwd, fwd_plain, f"K5 random tile {ts} chunk {ch} rays {ray_width}")
-            n_chunks = (args[3] + ch - 1) // ch
-            visited = torch.arange(kw["max_chunks"], device=dev) < n_chunks[:, None, None]
-            stopped = float(((fwd_plain[1] == 0) & visited).any(-1).float().mean())
-            gout = 0.3 * torch.randn(fwd[0].shape, device=dev,
-                                     generator=torch.Generator(device=dev).manual_seed(seed))
-            owned = torch.zeros(args[0].shape[1], dtype=torch.bool, device=dev)
-            for s0, c in zip(args[2].tolist(), args[3].tolist()):
-                owned[s0:s0 + c] = True
-            gflat = gut_blend_backward(*args, fwd[1], fwd[0], gout, **kw)
-            gflat_plain = gut_blend_backward_plain(*args, fwd[1], fwd[0], gout, **kw)
-            torch.cuda.synchronize()
-            rel = check_blend_bwd(gflat, gflat_plain, owned,
-                                  f"K6 random {ts}/{ch} rays {ray_width}")
-            k5_random_err, k6_random_err = max(k5_random_err, err), max(k6_random_err, rel)
-            phase(f"k5-k6-random-{ts}-{ch}-rays{ray_width}", k5_max_abs_err=err,
-                  k6_rel_err=rel, stopped_pixel_share=stopped)
-    del fwd, fwd_plain, gflat, gflat_plain, gout
+    cases = [(f"random-{ts}-{ch}-rays{w}", random_gut_segments(ts, ch, seed, dev, w))
+             for ts, ch, seed in ((16, 128, 11), (32, 256, 12)) for w in (4, 8)]
+    cases += [(f"cull-border-{model}-{ts}-{ch}", gut_border_segments(model, ts, ch, seed, dev))
+              for model, ts, ch, seed in (("pinhole", 32, 128, 13), ("fisheye", 16, 128, 14),
+                                          ("ortho", 16, 256, 15), ("rolling", 32, 256, 16))]
+    for tag, (args, kw) in cases:
+        k5_err, k6_err, pairs = check_gut_kernels(args, kw, f"K5/K6 {tag}")
+        k5_random_err, k6_random_err = max(k5_random_err, k5_err), max(k6_random_err, k6_err)
+        phase(f"k5-k6-{tag}", k5_max_abs_err=k5_err, k6_rel_err=k6_err, pairs=pairs)
+    del cases
 
     # -- the main path: render_view of the full-width scene
     params, focal = build_workload(N_GAUSS, WIDTH, HEIGHT)

@@ -11,8 +11,9 @@ exactly; K3 bit-equal on two launches, and max abs error <= 1e-4 of the
 largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
 order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
 running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds);
-K5 as K2 and K6 as K3, for rays 4 and 8 wide (a decision mismatch would show as a whole
-instance's colour, far above 1e-5); K7 rtol 1e-5 plus 1e-5 of the prefix of the rows'
+K5 as K2 and K6 as K3, for rays 4 and 8 wide, on random segments and on splats that graze
+the kernels' warp ray cones through each camera model (a decision mismatch would show as a
+whole instance's colour, far above 1e-5); K7 rtol 1e-5 plus 1e-5 of the prefix of the rows'
 absolute values over the same run (a shuffle tree and a fold of block carries against
 masked shifted adds: only the order of float32 adds differs);
 the train step through the kernels against the same step through the plain versions:
@@ -29,9 +30,7 @@ from tpu_splat_torch.convert import splat_from_numpy
 from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backward_plain,
                                             blend_forward, blend_forward_plain,
                                             pack_features_bf16, unpack_features)
-from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
-                                                  gut_blend_backward_plain,
-                                                  gut_blend_forward, gut_blend_forward_plain)
+from tpu_splat_torch.ops.cuda.gut_kernels import gut_blend_forward
 from tpu_splat_torch.ops.cameras import CameraParams
 from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_plain,
                                              segred_prefix, segred_prefix_plain,
@@ -39,7 +38,8 @@ from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_pl
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
-from chip_smoke import blend_pairs, random_gut_segments, random_segments
+from chip_smoke import (blend_pairs, check_gut_kernels, gut_border_segments,
+                        random_gut_segments, random_segments)
 from torch_fixtures import blend_fixture, emission_runs
 
 
@@ -118,32 +118,32 @@ def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout, b
     assert bool((got[:, ~owned] == 0).all()) and int((~owned).sum()) > 0
 
 
+def _check_gut_kernels_on_card(args, kw):
+    """`chip_smoke.check_gut_kernels`: K5's out, chk, stop decisions and pair counts against
+    the plain version's; K6 within 1e-4 of the largest gradient, bit-equal on two launches,
+    unowned columns zero. Then: some pixels stop, and the cull skips pairs."""
+    _, _, pairs = check_gut_kernels(args, kw, "card test")
+    assert pairs["stops"] > 0 and pairs["kept"] < pairs["walked"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ray_width", [4, 8])
 @pytest.mark.parametrize("tile_size,chunk", [(16, 128), (32, 128), (32, 256)])
 def test_gut_blend_kernels_match_plain_on_card(tile_size, chunk, ray_width):
     _require_cuda()
-    dev = torch.device("cuda")
-    (flat, rays, seg_start, count), kw = random_gut_segments(tile_size, chunk, 11, dev,
-                                                             ray_width)
-    args = (flat, rays, seg_start, count)
-    out, chk = gut_blend_forward(*args, **kw)
-    want_out, want_chk = gut_blend_forward_plain(*args, **kw)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out[..., :4], want_out[..., :4], rtol=0, atol=1e-5)
-    torch.testing.assert_close(out[..., 4:], want_out[..., 4:], rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
-    assert float((chk == 0).float().mean()) > 0.05  # pixels stopped early
-    gen = torch.Generator(device=dev).manual_seed(3)
-    gout = 0.3 * torch.randn(out.shape, device=dev, generator=gen)
-    got = gut_blend_backward(*args, chk, out, gout, **kw)
-    want = gut_blend_backward_plain(*args, chk, out, gout, **kw)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
-    owned = torch.zeros(flat.shape[1], dtype=torch.bool, device=dev)
-    for s0, c in zip(seg_start.tolist(), count.tolist()):
-        owned[s0:s0 + c] = True
-    assert bool((got[:, ~owned] == 0).all()) and int((~owned).sum()) > 0
+    _check_gut_kernels_on_card(*random_gut_segments(tile_size, chunk, 11, torch.device("cuda"),
+                                                    ray_width))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,tile_size,chunk", [("pinhole", 32, 128), ("fisheye", 16, 128),
+                                                   ("ortho", 16, 256), ("rolling", 32, 256)])
+def test_gut_blend_kernels_on_the_cull_border_on_card(model, tile_size, chunk):
+    """Splats whose 1/255 ellipsoid grazes the kernels' warp ray cones, a third of them with
+    an opacity near 1/255, through each GUT camera model: the cull changes no decision."""
+    _require_cuda()
+    _check_gut_kernels_on_card(*gut_border_segments(model, tile_size, chunk, 17,
+                                                    torch.device("cuda")))
 
 
 @pytest.mark.cuda

@@ -19,10 +19,10 @@
 // of chunks the forward never reached, are not written: the wrapper hands in a zeroed
 // gflat.
 //
-// Bound on the H100: operations. The forward's ~50 operations per evaluated pair plus
-// about 100 and one more divide per used pair, and the seventeen-value pixel reduction;
+// Bound on the H100: operations. The forward's ~49 operations for each pair a pixel uses
+// or stops at, plus 83 and one more divide for each used pair (the pixel sums included);
 // the bytes (feature columns, rays, chk, out, gout read, seventeen floats an instance
-// written) are far smaller.
+// written) are smaller.
 //
 // Design: K3's (blend_bwd.cu), with seventeen sums an instance instead of ten.
 //  * The used set is the forward's: each chunk is replayed front to back from its entry
@@ -32,15 +32,24 @@
 //    triangular suffix matmul have no counterpart.
 //  * suffix = total - running prefix, the pixel's total g . out + gT T_final being known
 //    from the forward: one front-to-back pass.
+//  * The cull of the forward (gut_common.cuh): the same warp sub-rectangles and ray cones,
+//    the staging thread computes each instance's sphere beside its features, and a warp
+//    replays only the instances its ballot keeps, each only on the sub-rectangles it may
+//    meet. The cull skips only pairs the decision arithmetic rejects, so the replay sees
+//    the forward's used set.
 //  * The pixel reduction: nine of the sums are outer products with the pixel's own ray, so
-//    nothing factors out of the pixel sum. A thread adds its own pixels' products, a warp
-//    reduces by shuffles (skipped when no lane used the instance), lane 0 parks the sums in
-//    the warp's shared-memory slice, and after each batch of 32 instances the block adds
+//    nothing factors out of the pixel sum. A thread adds its own pixels' products; a warp
+//    that walked an instance and used it on some lane reduces them by shuffles, and lane 0
+//    parks the sums in the warp's shared-memory slice (warps that skip the instance do
+//    neither: their slice keeps its zero); after each batch of 32 instances the block adds
 //    the eight slices in warp order and writes the columns. No atomics; a fixed order,
-//    the same bits from run to run. Shared memory: 17 x 256 staged features and
-//    8 x 17 x 32 partial sums, 34 KB.
-//  * 256 threads a block, one pixel a thread at tile 16 and four at tile 32. The block
-//    stops at the first chunk that no pixel enters alive.
+//    the same bits from run to run. Shared memory: 17 x 256 staged features, 4 x 256
+//    sphere values, 8 x 17 x 32 partial sums and the cones, 39 KB.
+//  * 256 threads a block, one pixel a thread at tile 16 and four at tile 32, in the
+//    forward's warp sub-rectangles. The block stops at the first chunk that no pixel
+//    enters alive. With rays 4 wide __launch_bounds__ asks for three blocks an SM at tile
+//    16 (98 registers otherwise: two blocks) and two at tile 32: asked for one, ptxas took
+//    137 registers instead of 128, and one block an SM made K6 1.5x slower (PERF.md).
 
 #include "gut_common.cuh"
 
@@ -48,11 +57,10 @@ namespace {
 
 using namespace gut;
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 32;  // instances per cross-warp reduction
+constexpr int kBatch = 32;  // instances per cross-warp reduction: one ballot
 
 template <int PPT, bool ORIGIN>
-__global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, ORIGIN ? 1 : (PPT == 1 ? 3 : 2)) gut_bwd_kernel(
     const float* __restrict__ flat, long long stride,  // [17, stride]
     const float* __restrict__ rays,                    // [T, P, 4 | 8]
     const int* __restrict__ seg_start, const int* __restrict__ count,  // [T]
@@ -61,8 +69,12 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
     const float* __restrict__ out,   // [T, P, 8]
     const float* __restrict__ gout,  // [T, P, 8]
     float* __restrict__ gflat, long long gstride) {  // [17, gstride], zeroed
+  using L = Layout<PPT>;
   __shared__ float s_feat[kFeat][kMaxChunk];
+  __shared__ float s_sph[kSph][kMaxChunk];
   __shared__ float s_part[kWarps][kFeat][kBatch];
+  __shared__ float s_cone[kWarps][PPT][kCone];
+  __shared__ float s_domax[kWarps];
   constexpr int P = kThreads * PPT;
   const int t = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -80,10 +92,13 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
   float total[PPT], prefix[PPT], tr[PPT], cp[PPT];
   bool live[PPT];
   size_t chk_row[PPT];
+  float domax = 0.0f;
 #pragma unroll
   for (int q = 0; q < PPT; ++q) {
-    const size_t pix = static_cast<size_t>(t) * P + threadIdx.x + q * kThreads;
+    const size_t pix =
+        static_cast<size_t>(t) * P + L::y(warp, lane, q) * L::kTile + L::x(warp, lane, q);
     ray[q] = load_ray<ORIGIN>(rays, pix);
+    domax = fmaxf(domax, warp_cone<ORIGIN>(ray[q].d, ray[q].o, s_cone[warp][q], lane));
     const float4 g0 = *reinterpret_cast<const float4*>(gout + pix * 8);
     const float g4 = gout[pix * 8 + 4];
     const float4 o0 = *reinterpret_cast<const float4*>(out + pix * 8);
@@ -96,6 +111,13 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
     total[q] = g0.x * o0.x + g0.y * o0.y + g0.z * o0.z + g4 * o4 + g0.w * o0.w;
     prefix[q] = 0.0f;
     chk_row[q] = pix * max_chunks;
+  }
+  double do_max = 0.0;  // the tile's largest |do|, for the spheres' rounding term
+  if (ORIGIN) {
+    if (lane == 0) s_domax[warp] = domax;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) do_max = fmax(do_max, static_cast<double>(s_domax[w]));
   }
 
   for (int j = 0; j < nch; ++j) {
@@ -112,13 +134,22 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
 
     const int n = min(chunk, cnt - j * chunk);
     const long long base = static_cast<long long>(seg0) + static_cast<long long>(j) * chunk;
-    if (threadIdx.x < n) stage_features(flat, stride, base + threadIdx.x, s_feat, threadIdx.x);
+    if (threadIdx.x < n) {
+      stage_instance(flat, stride, base + threadIdx.x, s_feat, s_sph, threadIdx.x, do_max);
+    }
     __syncthreads();
 
     for (int b0 = 0; b0 < n; b0 += kBatch) {
       const int m = min(kBatch, n - b0);
       if (__any_sync(kFullMask, thread_live)) {
-        for (int c = b0; c < b0 + m; ++c) {
+        // which of these 32 instances may meet which of the warp's sub-rectangles
+        const unsigned mine = lane < m ? cone_mask<PPT>(s_sph, b0 + lane, s_cone[warp]) : 0u;
+        unsigned bits = __ballot_sync(kFullMask, mine != 0u);
+        while (bits != 0u) {
+          const int k = __ffs(bits) - 1;
+          bits &= bits - 1u;
+          const unsigned qmask = PPT == 1 ? 1u : __shfl_sync(kFullMask, mine, k);
+          const int c = b0 + k;
           const Instance in = load_instance(s_feat, c);
           float v[kFeat];
 #pragma unroll
@@ -126,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
           bool used = false;
 #pragma unroll
           for (int q = 0; q < PPT; ++q) {
-            if (!live[q]) continue;
+            if (!live[q] || !((qmask >> q) & 1u)) continue;
             const Response s = ray_response<ORIGIN>(in, ray[q]);
             if (s.alpha_raw >= kMinAlpha) {
               const float alpha = fminf(s.alpha_raw, kMaxAlpha);
@@ -162,9 +193,9 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
 #pragma unroll
                 for (int i = 0; i < 3; ++i) {
 #pragma unroll
-                  for (int k = 0; k < 3; ++k) {
-                    v[3 * i + k] += dv[i] * ray[q].d[k];
-                    if (ORIGIN) v[3 * i + k] += dg[i] * ray[q].o[k];
+                  for (int kk = 0; kk < 3; ++kk) {
+                    v[3 * i + kk] += dv[i] * ray[q].d[kk];
+                    if (ORIGIN) v[3 * i + kk] += dg[i] * ray[q].o[kk];
                   }
                   v[9 + i] += dg[i];
                 }
@@ -186,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) gut_bwd_kernel(
             }
             if (lane == 0) {
 #pragma unroll
-              for (int f = 0; f < kFeat; ++f) s_part[warp][f][c - b0] = v[f];
+              for (int f = 0; f < kFeat; ++f) s_part[warp][f][k] = v[f];
             }
           }
         }
@@ -229,13 +260,13 @@ extern "C" int tpu_splat_gut_bwd(const float* flat, long long stride, const floa
                                  const float* chk, const float* out, const float* gout,
                                  float* gflat, long long gstride, cudaStream_t stream) {
   if (n_tiles <= 0) return 0;
-  const int p = tile_size * tile_size;
   if (chunk <= 0 || chunk > kMaxChunk || max_chunks <= 0 ||
-      (ray_width != 4 && ray_width != 8) || (p != kThreads && p != 4 * kThreads)) {
+      (ray_width != 4 && ray_width != 8) ||
+      (tile_size != Layout<1>::kTile && tile_size != Layout<4>::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool origin = ray_width == 8;
-  if (p == kThreads) {
+  if (tile_size == Layout<1>::kTile) {
     (origin ? launch<1, true> : launch<1, false>)(flat, stride, rays, seg_start, count,
                                                   n_tiles, chunk, max_chunks, chk, out, gout,
                                                   gflat, gstride, stream);

@@ -28,15 +28,23 @@ a pixel's whole remaining blend.
 The wrappers launch `csrc/gut_fwd.cu` / `csrc/gut_bwd.cu` on a CUDA tensor and run the
 plain versions (`*_plain`) on a CPU tensor. The plain versions are vectorised over batches
 of tiles and keep no autograd graph. `GutBlendTiles` is the differentiable blend.
+
+Both kernels cull: a warp evaluates an instance only on those of its 8x4-pixel
+sub-rectangles whose ray cone the instance's widened 1/255 sphere may meet
+(`csrc/gut_common.cuh`). `gut_cull_spheres`, `gut_cull_cones` and `gut_cull_keep` are the
+plain twins of that sphere, cone and test; the wrappers do not call them (the cull changes
+no output), tests and chip_smoke.py do.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA, TRANSMITTANCE_THRESHOLD
-from .blend import (CHUNKS, TILE_SIZES, _check_backward_args, _tile_batches,
-                    composite_chunk)
+from .blend import (CHUNKS, SUB_H, SUB_W, TILE_SIZES, _check_backward_args, _tile_batches,
+                    _to_f32, composite_chunk)
 from .build import check, kernel, require_cuda
 
 (G_M00, G_M01, G_M02, G_M10, G_M11, G_M12, G_M20, G_M21, G_M22,
@@ -107,6 +115,134 @@ def ray_response(feat, d, do, seg_start, count, j, chunk):
     a = torch.where(valid, alpha, 0.0)
     return f, idx, lane_valid, a, valid, dict(n=n, inorm=inorm, g=g, c=c, e=e,
                                               alpha_raw=alpha_raw)
+
+
+# margins of the kernels' cull (csrc/gut_common.cuh, which states their reasons)
+CULL_ABS, CULL_KAPPA, CULL_REL, CULL_COND_MAX = 1e-5, 34.0, 1e-3, 1e5
+CULL_DIR_MIN, CULL_DIR_MAX, CULL_V_MIN, CULL_V_MAX = 1e-3, 1e3, 1e-11, 1e18
+CULL_EPS = 1e-5
+_U = 2.0 ** -24
+(C_BX, C_BY, C_BZ, C_COS, C_SIN, C_OX, C_OY, C_OZ, C_RHO) = range(9)  # cone rows
+
+
+@torch.no_grad()
+def gut_cull_spheres(flat: torch.Tensor, do_max=0.0) -> torch.Tensor:
+    """Plain twin of the kernels' cull sphere (`gut_common.cuh::cull_sphere`): from the
+    float32 rows M, gro, opacity [>=13, ...] and the largest |do| of the tile's rays
+    (`do_max`, broadcastable to flat.shape[1:]; 0 for rays 4 wide) the sphere [4, ...] =
+    (centre m, radius R) that holds every point of a ray the kernel can accept the instance
+    on, widened by the kernels' margins. R = -inf where op < 1/255 (no pair passes);
+    m = 0, R = +inf (every pair kept) for any NaN / Inf, a (nearly) singular M, or an M
+    whose |v| could reach the 1e-12 clamp or overflow."""
+    f = flat[:G_OP + 1]
+    finite = torch.isfinite(f).all(0)
+    f = torch.where(finite, f, 0.0).double()
+    m = [f[i] for i in range(9)]
+    gro = f[G_GX:G_GZ + 1]
+    s = torch.log(f[G_OP] / float(torch.tensor(MIN_ALPHA, dtype=torch.float32))) + CULL_ABS
+    empty = finite & ~(s >= 0)
+    adj = [m[4] * m[8] - m[5] * m[7], m[2] * m[7] - m[1] * m[8], m[1] * m[5] - m[2] * m[4],
+           m[5] * m[6] - m[3] * m[8], m[0] * m[8] - m[2] * m[6], m[2] * m[3] - m[0] * m[5],
+           m[3] * m[7] - m[4] * m[6], m[1] * m[6] - m[0] * m[7], m[0] * m[4] - m[1] * m[3]]
+    det = m[0] * adj[0] + m[1] * adj[3] + m[2] * adj[6]
+    inv = [a / det for a in adj]
+    row = lambda i, k: inv[3 * i] * inv[3 * k] + inv[3 * i + 1] * inv[3 * k + 1] \
+        + inv[3 * i + 2] * inv[3 * k + 2]
+    a00, a11, a22, a01, a02, a12 = row(0, 0), row(1, 1), row(2, 2), row(0, 1), row(0, 2), row(1, 2)
+    # largest eigenvalue of M^-1 M^-T, closed form, rounded up
+    q = (a00 + a11 + a22) / 3.0
+    b0, b1, b2 = a00 - q, a11 - q, a22 - q
+    p = torch.sqrt((b0 * b0 + b1 * b1 + b2 * b2 + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12))
+                   / 6.0)
+    r = 0.5 * (b0 * (b1 * b2 - a12 * a12) - a01 * (a01 * b2 - a12 * a02)
+               + a02 * (a01 * a12 - b1 * a02)) / (p * p * p)
+    phi = torch.acos(torch.clamp(r, -1.0, 1.0)) / 3.0
+    lam = torch.where(p > 0, q + 2.0 * p * torch.clamp_max(torch.cos(phi) + 1e-6, 1.0), q)
+    sig = torch.sqrt(lam) * (1.0 + 1e-12)  # sigma_max(M^-1)
+    nf = torch.sqrt(sum(x * x for x in m))  # ||M||_F
+    bounded = ((det != 0) & (nf * sig <= CULL_COND_MAX) & (CULL_DIR_MIN / sig >= 2 * CULL_V_MIN)
+               & (nf * CULL_DIR_MAX <= CULL_V_MAX))
+    c = [-(inv[3 * i] * gro[0] + inv[3 * i + 1] * gro[1] + inv[3 * i + 2] * gro[2])
+         for i in range(3)]
+    cn = torch.sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2])
+    rad = (sig * (torch.sqrt(2.0 * s) + CULL_KAPPA * _U * nf * (cn + do_max)) * (1.0 + CULL_REL)
+           + 4.0 * _U * cn)
+    sph = torch.stack([*(x.float() for x in c), _to_f32(rad, math.inf)])
+    keep_all, cull_all = (sph.new_tensor([0.0, 0.0, 0.0, rad]).view(4, *[1] * s.dim())
+                          for rad in (math.inf, -math.inf))
+    return torch.where(empty, cull_all, torch.where(finite & bounded, sph, keep_all))
+
+
+def gut_cull_cells(tile_size: int, dev=None) -> torch.Tensor:
+    """The kernels' 8x4 sub-rectangles of a tile: [S, 32] row-major pixel indices, lane l
+    of cell s at (8 (s % (tile / 8)) + l % 8, 4 (s // (tile / 8)) + l // 8)."""
+    cw = tile_size // SUB_W
+    s = torch.arange(cw * (tile_size // SUB_H), device=dev)[:, None]
+    lane = torch.arange(SUB_W * SUB_H, device=dev)[None, :]
+    return (4 * (s // cw) + lane // SUB_W) * tile_size + SUB_W * (s % cw) + lane % SUB_W
+
+
+@torch.no_grad()
+def gut_cull_cones(rays: torch.Tensor, tile_size: int):
+    """Plain twin of the kernels' ray cones (`gut_common.cuh::warp_cone`): rays
+    [T, P, 4|8] -> (cones [T, S, 9] float32 with rows C_* (axis, cos and sin of the
+    half-angle rounded to widen, mean origin offset, its radius rho) for the S sub-rectangles
+    of `gut_cull_cells`, do_max [T] the largest |do| of each tile's rays). A cell with a ray
+    that is not finite or whose length is outside [1e-3, 1e3], or a cone of 90 degrees or
+    more, gets the cone that covers everything (axis 0, cos 1, sin 0, offset 0, rho 0)."""
+    cells = gut_cull_cells(tile_size, rays.device)
+    r = rays[:, cells]  # [T, S, 32, W]
+    d = r[..., :3].double()
+    length = torch.linalg.vector_norm(d, dim=-1)
+    bad = ~((length >= CULL_DIR_MIN) & (length <= CULL_DIR_MAX))
+    origin = rays.shape[2] == 8
+    if origin:
+        bad |= ~torch.isfinite(r[..., 4:7]).all(-1)
+    u = torch.where(bad[..., None], 0.0, d / length[..., None])
+    ssum = u.sum(-2)  # [T, S, 3]
+    sl = torch.linalg.vector_norm(ssum, dim=-1)
+    b = (ssum / sl[..., None]).float()
+    bd = b.double()[..., None, :]
+    th = torch.atan2(torch.linalg.vector_norm(torch.cross(u, bd.expand_as(u), dim=-1), dim=-1),
+                     (u * bd).sum(-1))
+    phi = torch.where(bad, math.inf, th).amax(-1) + 1e-9
+    everything = ~(phi < 0.5 * math.pi) | ~(sl > 0)
+    cols = [b[..., 0], b[..., 1], b[..., 2], _to_f32(torch.cos(phi), -math.inf),
+            torch.clamp_max(_to_f32(torch.sin(phi), math.inf), 1.0)]
+    zero = torch.zeros_like(sl, dtype=torch.float32)
+    if origin:
+        o = torch.where(bad[..., None], 0.0, r[..., 4:7].double())
+        delta = (o.sum(-2) / 32.0).float()
+        rho = torch.linalg.vector_norm(o - delta.double()[..., None, :], dim=-1)
+        rho = _to_f32(torch.where(bad, 0.0, rho).amax(-1), math.inf)
+        do_max = _to_f32(torch.linalg.vector_norm(o, dim=-1).amax(-1), math.inf).amax(-1)
+        cols += [delta[..., 0], delta[..., 1], delta[..., 2], rho]
+    else:
+        do_max = torch.zeros(rays.shape[0], dtype=torch.float32, device=rays.device)
+        cols += [zero, zero, zero, zero]
+    cones = torch.stack(cols, dim=-1)
+    cover = cones.new_tensor([0, 0, 0, 1, 0, 0, 0, 0, 0])
+    return torch.where(everything[..., None], cover, cones), do_max
+
+
+def gut_cull_keep(sph: torch.Tensor, cones: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """Plain twin of the kernels' cull test (`gut_common.cuh::cone_mask`), in float32 in the
+    kernels' operation order: sph [4, T, C] (each tile's instances' spheres), cones
+    [T, S, 9] -> keep [T, C, P], True where the pair of instance c and pixel p survives,
+    i.e. the sphere may meet the cone of the pixel's sub-rectangle. Culls only what is
+    clearly outside: a NaN keeps the pair."""
+    m = sph[:3, :, :, None]  # [3, T, C, 1]
+    cn = cones[:, None, :, :]  # [T, 1, S, 9]
+    ax, ay, az = (m[i] - cn[..., C_OX + i] for i in range(3))
+    bx, by, bz = cn[..., C_BX], cn[..., C_BY], cn[..., C_BZ]
+    h = torch.abs(ax * bx + ay * by + az * bz)
+    ex, ey, ez = ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+    r = torch.sqrt(ex * ex + ey * ey + ez * ez)
+    mn = torch.sqrt(ax * ax + ay * ay + az * az)
+    out = r * cn[..., C_COS] - h * cn[..., C_SIN] > sph[3, :, :, None] + cn[..., C_RHO] \
+        + torch.tensor(CULL_EPS, dtype=torch.float32) * mn  # [T, C, S]
+    cell_of = torch.argsort(gut_cull_cells(tile_size, sph.device).reshape(-1)) // (SUB_W * SUB_H)
+    return ~out[:, :, cell_of]
 
 
 @torch.no_grad()
