@@ -13,8 +13,12 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    chunk 128) and (tile 32, chunk 256), and on segments whose splats sit on the borders of
    the kernels' 8x4 warp sub-rectangles with opacities near 1/255; K2's stop decisions
    (the zero checkpoints and the pair counts of `blend_pairs`) equal to the plain
-   version's, K3 bit-equal on two launches; K4 (10 and 17 rows) and K7 (10 and 17 rows) on
-   random runs with empty runs and one run of 300,000 slots; K5 and K6 on random
+   version's, K3 bit-equal on two launches; K4 and K7 (10 and 17 rows) on random runs with
+   empty runs and one run of 300,000 slots, reading rows in a random tile-sorted order
+   through the emission->column index and in emission order: K4 bit-equal on every run of
+   at most 64 slots to the plain version and to the gather followed by K4, both kernels
+   bit-equal on two launches, K7 also on an axis shorter than one block and on one that
+   ends in a partial block; K5 and K6 on random
    unaligned segments with rays 4 and 8 wide, and on segments whose splats graze the
    kernels' warp ray cones (opacities near 1/255 among them) through a distorted pinhole,
    a fisheye, an ortho and a rolling-shutter camera (`gut_border_segments`): K5's stop
@@ -33,12 +37,15 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
    the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
    render of a perturbed copy of the scene and one `refine_step`, with every launch count
-   set to 0 just before and read just after; checks one launch of K1-K4 a step, no
-   overflow, finite state and a falling loss;
+   set to 0 just before and read just after; checks one launch of K1-K4 a step, no call
+   of `emission_order` (K4 reads K3's rows through `emis_col`), no overflow, finite state
+   and a falling loss;
 8. holds `rasterize`'s six parameter gradients through the kernels against the plain
    versions at the train step's shapes, and K2-bf16 (with its stop decisions and pair
-   counts), K3 (and its repeatability) and K4 against their plain versions on the step's
-   own inputs, and times them; times the step (wall) and its
+   counts), K3 (and its repeatability) and K4 (through `emis_col`; bit-equal on runs of at
+   most 64 slots to the plain version and to the gather followed by K4, and on two
+   launches) against their plain versions on the step's own inputs, and times them, the
+   path K4 replaces (gather + K4) and the library yardstick; times the step (wall) and its
    stages (CUDA events);
 9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
    distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
@@ -47,9 +54,10 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    inputs; 20 GUT
    `train_step`s (`StepConfig(gut=True)`), the last six through the K7 lane, with every
    launch count set to 0 just before and read just after: K1, K5, K6 once a step and K4 or
-   K7 once a step; the six parameter gradients of `rasterize_gut` under both reduction
-   lanes; K5 (with its stop decisions and pair counts), K6 (and its repeatability), K7
-   and 17-row K4 against their plain versions on the step's own inputs, their times, the
+   K7 once a step, and no call of `emission_order`; the six parameter gradients of
+   `rasterize_gut` under both reduction lanes; K5 (with its stop decisions and pair
+   counts), K6 (and its repeatability), K7 and 17-row K4 (through `emis_col`, as at the
+   pinhole step) against their plain versions on the step's own inputs, their times, the
    GUT frame's time and the GUT step's stage split;
 10. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
    counts; K5 and K6 with their pair counts and ptxas' registers and spills), a `frame`
@@ -64,6 +72,7 @@ repetitions after warm-up, on the card named in the output.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -148,6 +157,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def calls_counted(module, name: str):
+    """Count the calls of `module.name` made inside the block; yields [count]."""
+    fn, count = getattr(module, name), [0]
+
+    def wrapped(*args, **kwargs):
+        count[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield count
+    finally:
+        setattr(module, name, fn)
+
+
 def require(ok, what) -> None:
     """A check of the run: raises (also under python -O, unlike assert)."""
     if not ok:
@@ -176,7 +201,7 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry = m.group(1)
-            t = re.search(r"([a-z][a-z_]*_kernel)ILi(\d)ELb(\d)E", entry)
+            t = re.search(r"(gut_(?:fwd|bwd)_kernel)ILi(\d)ELb(\d)E", entry)
             key = (f"{t.group(1)} tile{16 if t.group(2) == '1' else 32}-rays"
                    f"{8 if t.group(3) == '1' else 4}" if t else entry)
             out[key] = {}
@@ -244,13 +269,14 @@ def check_blend_bwd(gflat, gflat_plain, owned, label: str) -> float:
     return rel
 
 
-def check_segsum(got, want, rows, start, end, label: str) -> float:
+def check_segsum(got, want, rows, start, end, label: str, cols=None) -> float:
     """K4 tolerance: rtol 1e-5, atol 1e-5 of the run's magnitude (the sum of its absolute
     values) plus 1e-35 (below float32's normal range a value keeps fewer bits): only the
-    order of float32 adds differs. Empty runs exactly zero. -> max abs error."""
+    order of float32 adds differs (runs over 64 slots: a block-strided sum against float64).
+    Empty runs exactly zero. -> max abs error."""
     from tpu_splat_torch.ops.cuda.raster import segsum_emission_plain
 
-    magnitude = segsum_emission_plain(rows.abs(), start, end)
+    magnitude = segsum_emission_plain(rows.abs(), start, end, cols)
     excess = (got - want).abs() - (1e-5 * want.abs() + 1e-5 * magnitude + 1e-35)
     worst = int(excess.argmax())
     require(bool((excess <= 0).all()),
@@ -259,6 +285,21 @@ def check_segsum(got, want, rows, start, end, label: str) -> float:
             f"magnitude {float(magnitude.flatten()[worst])!r}")
     require(bool((got[:, end <= start] == 0).all()), f"{label}: an empty run is not zero")
     return max_err(got, want)
+
+
+def check_segsum_bits(got, others: dict, start, end, label: str) -> int:
+    """K4 sums every run of at most LONG_RUN slots slot by slot in run order, so on those
+    runs it gives the same bits as each of `others` (the plain version, the gather followed
+    by K4 on emission-order rows, a second launch). -> the number of such runs."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import LONG_RUN
+
+    short = (end - start) <= LONG_RUN
+    for name, other in others.items():
+        require(torch.equal(got[:, short], other[:, short]),
+                f"{label}: a run of at most {LONG_RUN} slots differs from {name}")
+    return int(short.sum())
 
 
 def random_segments(tile_size: int, chunk: int, seed: int, dev, borders: bool = False):
@@ -740,16 +781,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(by_bytes, by_ops), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def check_prefix(got, want, rows, rank, label: str) -> float:
+def check_prefix(got, want, rows, rank, label: str, cols=None) -> float:
     """K7 tolerance: rtol 1e-5 plus 1e-5 of the prefix of the rows' absolute values over
     the same run (plus 1e-35 below float32's normal range): a shuffle tree and a fold of
-    block carries against masked shifted adds, only the order of float32 adds differs.
+    block aggregates against masked shifted adds, only the order of float32 adds differs.
     A run head holds its own row exactly. -> max abs error."""
     import torch
 
     from tpu_splat_torch.ops.cuda.raster import segred_prefix_plain
 
-    magnitude = segred_prefix_plain(rows.abs(), rank)
+    magnitude = segred_prefix_plain(rows.abs(), rank, cols)
+    if cols is not None:
+        rows = rows.index_select(1, cols)
     excess = (got - want).abs() - (1e-5 * want.abs() + 1e-5 * magnitude + 1e-35)
     worst = int(excess.argmax())
     require(bool((excess <= 0).all()),
@@ -760,6 +803,95 @@ def check_prefix(got, want, rows, rank, label: str) -> float:
     head[1:] = rank[1:] != rank[:-1]
     require(torch.equal(got[:, head], rows[:, head]), f"{label}: a run head differs")
     return max_err(got, want)
+
+
+def segsum_step_kernel(gflat, inst, label: str) -> dict:
+    """K4 at a train step's own inputs: the blend backward's tile-sorted rows `gflat` read
+    through `inst.emis_col`. Against the plain version; bit-equal on runs of at most 64
+    slots to the plain version and to the gather followed by K4; the same bits on two
+    launches. Times the kernel, the plain version, the path it replaces (`emission_order`
+    and this tree's K4 on the gathered rows) and the library yardstick: the faster of two
+    single `index_add_` calls over the tile-sorted rows by `sorted_gid`, into dim 1 of the
+    [F, N] sums or into dim 0 of [N, F] from the rows' transpose. -> its numbers."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import (emission_order, rows_per_pass,
+                                                 segsum_emission, segsum_emission_plain)
+
+    f, n, dev = gflat.shape[0], inst.emis_start.shape[0], gflat.device
+    start, end, cols = inst.emis_start, inst.emis_end, inst.emis_col
+    k4_in = (gflat, start, end, cols)
+    k4 = segsum_emission(*k4_in)
+    k4_plain = segsum_emission_plain(*k4_in)
+    err = check_segsum(k4, k4_plain, gflat, start, end, label, cols=cols)
+    require(torch.equal(segsum_emission(*k4_in), k4), f"{label}: two launches differ")
+
+    def gather_path():
+        return segsum_emission(emission_order(gflat, inst.sorted_emis), start, end)
+
+    n_short = check_segsum_bits(k4, {"the plain version": k4_plain,
+                                     "the gather + K4": gather_path()}, start, end, label)
+    gid, gflat_t = inst.sorted_gid.long(), gflat.t()
+    forms = {
+        "index_add_ dim 1": lambda: torch.zeros((f, n), device=dev).index_add_(1, gid, gflat),
+        "index_add_ dim 0 of the transpose":
+            lambda: torch.zeros((n, f), device=dev).index_add_(0, gid, gflat_t),
+    }
+    lib_ms = {}
+    for name, fn in forms.items():
+        got = fn()
+        check_segsum(got if got.shape[0] == f else got.t(), k4_plain, gflat, start, end,
+                     f"{label}: library yardstick, {name}", cols=cols)
+        lib_ms[name] = cuda_ms(fn, 20)
+    form = min(lib_ms, key=lib_ms.get)
+    n_slots = int(inst.total_instances)
+    return dict(max_abs_err=err, ms=cuda_ms(lambda: segsum_emission(*k4_in), 20),
+                plain_ms=cuda_ms(lambda: segsum_emission_plain(*k4_in), 5),
+                gather_path_ms=cuda_ms(gather_path, 20), library_ms=lib_ms[form],
+                library_form=form, library_forms_ms=lib_ms, short_runs_bit_equal=n_short,
+                rows_per_pass=rows_per_pass(gflat, cols), slots=n_slots,
+                bytes=(4 * f + 4) * n_slots + (4 * f + 8) * n,
+                sector_bytes=32 * f * n_slots, ops=f * n_slots)
+
+
+def prefix_step_kernel(gflat, inst, label: str) -> dict:
+    """K7 at a train step's own inputs, through `inst.emis_col`, against its plain
+    version; the same bits on two launches. Times the kernel, the plain version and the
+    path it replaces (`emission_order` and this tree's K7 on the gathered rows). No single
+    PyTorch call computes a segmented prefix. -> its numbers."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import (emission_order, rows_per_pass,
+                                                 segred_prefix, segred_prefix_plain)
+
+    f, m = gflat.shape[0], inst.emis_rank.shape[0]
+    k7_in = (gflat, inst.emis_rank, inst.emis_col)
+    k7 = segred_prefix(*k7_in)
+    err = check_prefix(k7, segred_prefix_plain(*k7_in), gflat, inst.emis_rank, label,
+                       cols=inst.emis_col)
+    require(torch.equal(segred_prefix(*k7_in), k7), f"{label}: two launches differ")
+
+    def gather_path():
+        return segred_prefix(emission_order(gflat, inst.sorted_emis), inst.emis_rank)
+
+    return dict(max_abs_err=err, ms=cuda_ms(lambda: segred_prefix(*k7_in), 20),
+                plain_ms=cuda_ms(lambda: segred_prefix_plain(*k7_in), 3),
+                gather_path_ms=cuda_ms(gather_path, 20), library_ms=None,
+                rows_per_pass=rows_per_pass(gflat, inst.emis_col), slots=m,
+                bytes=2 * 4 * f * m + 8 * m, sector_bytes=32 * f * m, ops=f * m)
+
+
+def kernel_entry(name: str, source: str, replaces: str, shapes: str, launches: int,
+                 k: dict) -> dict:
+    """A `kernels` line entry from a kernel's measured numbers `k` (max_abs_err, ms,
+    plain_ms, library_ms, bytes, ops); bound_ms from this run's bytes and operations."""
+    b_ms, b_by = bound_ms(k["bytes"], k["ops"])
+    extra = {key: v for key, v in k.items()
+             if key not in ("max_abs_err", "ms", "plain_ms", "library_ms")}
+    return dict(name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}",
+                shapes=shapes, replaces=f"tpu_splat/ops/pallas/{replaces}", launches=launches,
+                max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=k["library_ms"], **extra)
 
 
 def check_gut_kernels(args, kw, label: str, seed: int = 3):
@@ -832,15 +964,13 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     import torch
 
     from tpu_splat_torch.ops.cameras import CameraParams
-    from tpu_splat_torch.ops.cuda import build
     from tpu_splat_torch.ops.cuda.gut_kernels import (gut_blend_backward,
                                                       gut_blend_backward_plain,
                                                       gut_blend_forward,
                                                       gut_blend_forward_plain,
                                                       gut_blend_inputs)
-    from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_order,
-                                                 segred_prefix, segred_prefix_plain,
-                                                 segsum_emission, segsum_emission_plain)
+    from tpu_splat_torch.ops.cuda import build, raster
+    from tpu_splat_torch.ops.cuda.raster import build_sorted_instances, segmented_grad_reduce
     from tpu_splat_torch.ops.gut import (gut_feature_table, pixel_world_rays, rasterize_gut,
                                          ut_project)
     from tpu_splat_torch.ops.rasterize import compose_output
@@ -915,14 +1045,17 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     for fn in counted:
         fn.launches = 0
     ts, stats, step_wall = ts0, [], []
-    for i in range(GUT_STEPS):
-        lane = "prefix" if i >= GUT_STEPS - GUT_PREFIX_STEPS else "segsum"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, segred_impl=lane, **step_kw)
-        torch.cuda.synchronize()
-        step_wall.append((time.perf_counter() - t0) * 1e3)
-        stats.append(st)
+    with calls_counted(raster, "emission_order") as gathers:
+        for i in range(GUT_STEPS):
+            lane = "prefix" if i >= GUT_STEPS - GUT_PREFIX_STEPS else "segsum"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, segred_impl=lane,
+                                **step_kw)
+            torch.cuda.synchronize()
+            step_wall.append((time.perf_counter() - t0) * 1e3)
+            stats.append(st)
+    require(gathers[0] == 0, "a GUT train step gathered its gradient rows to emission order")
     launches = {fn.__name__: fn.launches for fn in counted}
     losses = [float(st.loss) for st in stats]
     totals = [int(st.total_instances) for st in stats]
@@ -1001,14 +1134,6 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     owned = torch.arange(flat.shape[1], device=dev) < n_valid  # segments lie back to back
     k6_err = check_blend_bwd(k6, k6_plain, owned, "K6 train frame")
     check_blend_bwd_repeats(gut_blend_backward, *bwd, label="K6 train frame", **kkw)
-    rows = emission_order(k6, inst.sorted_emis)
-    k4_in = (rows, inst.emis_start, inst.emis_end)
-    k4 = segsum_emission(*k4_in)
-    k4_plain = segsum_emission_plain(*k4_in)
-    k4_err = check_segsum(k4, k4_plain, *k4_in, "K4 17 rows, GUT frame")
-    k7 = segred_prefix(rows, inst.emis_rank)
-    k7_plain = segred_prefix_plain(rows, inst.emis_rank)
-    k7_err = check_prefix(k7, k7_plain, rows, inst.emis_rank, "K7 GUT frame")
     torch.cuda.synchronize()
 
     k5_ms = cuda_ms(lambda: gut_blend_forward(flat, rays, seg, cnt, **kkw), 10)
@@ -1016,27 +1141,15 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
                           warmup=1)
     k6_ms = cuda_ms(lambda: gut_blend_backward(*bwd, **kkw), 10)
     k6_plain_ms = cuda_ms(lambda: gut_blend_backward_plain(*bwd, **kkw), 2, warmup=1)
-    k4_ms = cuda_ms(lambda: segsum_emission(*k4_in), 20)
-    k4_plain_ms = cuda_ms(lambda: segsum_emission_plain(*k4_in), 5)
-    k7_ms = cuda_ms(lambda: segred_prefix(rows, inst.emis_rank), 20)
-    k7_plain_ms = cuda_ms(lambda: segred_prefix_plain(rows, inst.emis_rank), 3)
-    rank_long = inst.emis_rank.long()
+    k4 = segsum_step_kernel(k6, inst, "K4 17 rows, GUT train frame")
+    k7 = prefix_step_kernel(k6, inst, "K7 GUT train frame")
     n_gauss = sp.means.shape[0]
-
-    def library_segsum():  # one PyTorch call: index_add_ of the rows by their owner
-        return torch.zeros((17, n_gauss), device=dev).index_add_(1, rank_long, rows)
-
-    check_segsum(library_segsum(), k4_plain, *k4_in, "K4 17-row library yardstick")
-    k4_lib_ms = cuda_ms(library_segsum, 20)
-
-    n_slots, m = int(inst.total_instances), rows.shape[1]
+    n_slots, m = int(inst.total_instances), k6.shape[1]
     tp = n_tiles * TILE_T * TILE_T
     k5_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (8 + maxc)
     k6_bytes = 68 * n_valid + 8 * n_tiles + 16 * tp + 4 * tp * (16 + maxc) + 68 * n_valid
     k5_ops = K5_OPS_PER_PAIR * (pairs["used"] + pairs["stops"])
     k6_ops = k5_ops + K6_OPS_PER_USED_PAIR * pairs["used"]
-    k7_bytes = 2 * 4 * 17 * m + 4 * m
-    k4_bytes = 68 * n_slots + 76 * n_gauss
     shapes = f"GUT train step, tile 32, chunk {CHUNK_GUT}, rays 4 wide"
     regs = {name: ptxas_summary(build.build_log(name)) for name in ("gut_fwd", "gut_bwd")}
     for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
@@ -1044,28 +1157,29 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
          k5_plain_ms, bound_ms(k5_bytes, k5_ops), None),
         ("gut_bwd", "gut_bwd.cu", "gut_kernels.py:243", "gut_blend_backward", k6_err, k6_ms,
          k6_plain_ms, bound_ms(k6_bytes, k6_ops), None),
-        ("segprefix", "segprefix.cu", "raster.py:454", "segred_prefix", k7_err, k7_ms,
-         k7_plain_ms, bound_ms(k7_bytes, 17 * m), None),
-        ("segsum_17", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
-         k4_plain_ms, bound_ms(k4_bytes, 17 * n_slots), k4_lib_ms),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}", shapes=shapes,
             replaces=f"tpu_splat/ops/pallas/{replaces}", launches=launches[fn_name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib))
-        if name in regs:
-            kernels[-1].update(pairs=pairs, ptxas=regs[name])
+        kernels[-1].update(pairs=pairs, ptxas=regs[name])
+    for name, source, replaces, fn_name, k in (
+        ("segprefix", "segprefix.cu", "raster.py:454", "segred_prefix", k7),
+        ("segsum_17", "segsum.cu", "raster.py:693", "segsum_emission", k4),
+    ):
+        kernels.append(kernel_entry(name, source, replaces,
+                                    f"{shapes}: K6's tile-sorted rows through emis_col",
+                                    launches[fn_name], k))
     # the bounds of a kernel without a cull, which evaluates every walked pair
     walked_bound_ms = dict(gut_fwd=bound_ms(k5_bytes, K5_OPS_PER_PAIR * pairs["walked"])[0],
                            gut_bwd=bound_ms(k6_bytes, K5_OPS_PER_PAIR * pairs["walked"]
                                             + K6_OPS_PER_USED_PAIR * pairs["used"])[0])
     phase("gut-kernel-times", k5_bytes=k5_bytes, k6_bytes=k6_bytes, k5_ops=k5_ops,
           k6_ops=k6_ops, walked_bound_ms=walked_bound_ms,
-          k7_bytes=k7_bytes, k4_17_bytes=k4_bytes, pairs=pairs,
-          tile_instances=n_valid, emission_slots=n_slots, slots=m, k6_rel_err=k6_err,
-          k7_max_abs_err=k7_err, k4_17_max_abs_err=k4_err)
-    del k5, k5_plain, k6, k6_plain, k4, k4_plain, k7, k7_plain, rows, bwd, gout, flat
+          pairs=pairs, tile_instances=n_valid, emission_slots=n_slots, slots=m,
+          k6_rel_err=k6_err, k7=k7, k4_17=k4)
+    del k5, k5_plain, k6, k6_plain, bwd, gout, flat
     torch.cuda.empty_cache()
 
     # -- the GUT frame's time (no gradient) and the step's split: the stages of
@@ -1079,7 +1193,7 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     stage_names = ("ut_project", "instances", "rays", "features", "gather", "gut_fwd", "loss",
-                   "gut_bwd", "emission_gather", "segsum", "features_bwd", "adam", "noise")
+                   "gut_bwd", "segsum", "features_bwd", "adam", "noise")
     split = {k: [] for k in stage_names}
     cfg = step_kw["opt"]
     lrs = dict(group_lrs(cfg, sp.scene_scale))
@@ -1113,24 +1227,22 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         ev[7].record()
         gf = gut_blend_backward(fl, ry, sg, ct, c, o, go.contiguous(), **kkw)
         ev[8].record()
-        rw = emission_order(gf, si.sorted_emis)
+        g_gt = segmented_grad_reduce(gf, si, "segsum")
         ev[9].record()
-        g_gt = segsum_emission(rw, si.emis_start, si.emis_end)
-        ev[10].record()
         reg = regularization_losses(leaves, sp.alive, cfg.scale_reg, cfg.opacity_reg)
         grads = torch.autograd.grad([gt, reg], list(leaves.values()),
                                     [g_gt, torch.ones_like(reg)], allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(leaves, grads)}
-        ev[11].record()
+        ev[10].record()
         lrs["means"] = means_lr_at(group_lrs(cfg, sp.scene_scale)["means"], ts.iteration - 1,
                                    30_000)
         new_params, _ = adam_step(sp.params(), grads, ts.adam, lrs, ts.iteration)
-        ev[12].record()
+        ev[11].record()
         strategy_mcmc.inject_noise(sp.replace_params(new_params), lrs["means"],
                                    generator=ts.rng)
-        ev[13].record()
-        ev[13].synchronize()
+        ev[12].record()
+        ev[12].synchronize()
         for i, k in enumerate(stage_names):
             split[k].append(ev[i].elapsed_time(ev[i + 1]))
     split_ms = {k: statistics.median(v[1:]) for k, v in split.items()}
@@ -1146,6 +1258,78 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         fisheye_frame=dict(fish_aux, **fish_err), rolling_frame=dict(roll_aux, **roll_err),
         loss_first=losses[0], loss_last=losses[-1], loss_first5=first5, loss_last5=last5,
         gradient_rel_err=grad_err, step_pairs=pairs, frame_kernels=frame_k, ptxas=regs)
+
+
+def segred_random_phases(dev) -> dict:
+    """K4 and K7 on random runs: 200,000 Gaussians, a quarter of them with empty runs, one
+    run of 300,000 slots (it spans 293 of K7's 1024-slot blocks), 1000 tail slots that
+    repeat the last owner (K7's convention), rows over eleven decades of magnitude. The rows
+    are tile-sorted by a random permutation and read through its inverse, the
+    emission->column index, as the train step reads them, and also in emission order
+    without it (the JAX kernels' contract). Each kernel against its plain version; K4
+    bit-equal on runs of at most 64 slots to the plain version and to the gather followed
+    by K4; both kernels bit-equal on two launches; K7 also on an axis shorter than one
+    block and on one that ends in a partial block. -> the largest errors."""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.raster import (emission_columns, emission_order,
+                                                 segred_prefix, segred_prefix_plain,
+                                                 segsum_emission, segsum_emission_plain)
+
+    rng = np.random.default_rng(4)
+    run_len = rng.integers(0, 9, 200_000)
+    run_len[rng.random(run_len.size) < 0.25] = 0
+    run_len[70_000] = 300_000
+    run_end = np.cumsum(run_len)
+    m = int(run_end[-1]) + 1000
+    start = torch.from_numpy((run_end - run_len).astype(np.int32)).to(dev)
+    end = torch.from_numpy(run_end.astype(np.int32)).to(dev)
+    last_owner = int(np.nonzero(run_len)[0][-1])
+    rank = torch.from_numpy(np.concatenate([
+        np.repeat(np.arange(run_len.size, dtype=np.int32), run_len),
+        np.full(1000, last_owner, np.int32)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    result = dict(runs=int(run_len.size), empty_runs=int((run_len == 0).sum()),
+                  longest_run=int(run_len.max()), slots=m, k4_max_abs_err=0.0,
+                  k7_max_abs_err=0.0)
+    for n_rows in (10, 17):
+        rows = torch.randn((n_rows, m), device=dev, generator=gen)
+        # magnitudes over eleven decades, as gradient rows have
+        rows *= torch.pow(10.0, torch.randint(-8, 3, (1, m), device=dev,
+                                                generator=gen).float())
+        sorted_emis = torch.randperm(m, device=dev, generator=gen).to(torch.int32)
+        gflat = rows.index_select(1, sorted_emis.long())  # column c is slot sorted_emis[c]
+        cols = emission_columns(sorted_emis)
+        require(torch.equal(emission_order(gflat, sorted_emis), rows), "emission_order")
+        tag = f"random runs, {n_rows} rows"
+        k4 = segsum_emission(gflat, start, end, cols)
+        k4_plain = segsum_emission_plain(gflat, start, end, cols)
+        k4_emis = segsum_emission(rows, start, end)
+        err4 = max(check_segsum(k4, k4_plain, rows, start, end, f"K4 {tag}"),
+                   check_segsum(k4_emis, k4_plain, rows, start, end, f"K4 {tag}, emission order"))
+        require(torch.equal(segsum_emission(gflat, start, end, cols), k4), f"K4 {tag}: repeat")
+        n_short = check_segsum_bits(k4, {"the plain version": k4_plain,
+                                         "the gather + K4": k4_emis}, start, end, f"K4 {tag}")
+        k7 = segred_prefix(gflat, rank, cols)
+        k7_plain = segred_prefix_plain(rows, rank)
+        err7 = max(check_prefix(k7, k7_plain, rows, rank, f"K7 {tag}"),
+                   check_prefix(segred_prefix(rows, rank), k7_plain, rows, rank,
+                                f"K7 {tag}, emission order"))
+        require(torch.equal(segred_prefix(gflat, rank, cols), k7), f"K7 {tag}: repeat")
+        # K7 on an axis shorter than one block, and on one of five blocks and a part
+        for mm in (700, 5 * 1024 + 77):
+            r_mm, k_mm = rows[:, :mm].contiguous(), rank[:mm].contiguous()
+            perm_mm = torch.randperm(mm, device=dev, generator=gen).to(torch.int32)
+            g_mm = r_mm.index_select(1, perm_mm.long())
+            got = segred_prefix(g_mm, k_mm, emission_columns(perm_mm))
+            err7 = max(err7, check_prefix(got, segred_prefix_plain(r_mm, k_mm), r_mm, k_mm,
+                                          f"K7 {tag}, {mm} slots"))
+        torch.cuda.synchronize()
+        result["k4_max_abs_err"] = max(result["k4_max_abs_err"], err4)
+        result["k7_max_abs_err"] = max(result["k7_max_abs_err"], err7)
+        result[f"k4_{n_rows}_short_runs_bit_equal"] = n_short
+    phase("k4-k7-random", **result)
+    return result
 
 
 def main() -> int:
@@ -1166,14 +1350,14 @@ def main() -> int:
                                                       gut_blend_backward_plain,
                                                       gut_blend_forward,
                                                       gut_blend_forward_plain)
+    from tpu_splat_torch.ops.cuda import raster
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
                                                  expand_emission, expand_emission_plain,
-                                                 feature_table, segred_prefix,
-                                                 segred_prefix_plain, segsum_emission,
-                                                 segsum_emission_plain)
+                                                 feature_table, segmented_grad_reduce,
+                                                 segred_prefix, segsum_emission)
     from tpu_splat_torch.ops.projection import project
     from tpu_splat_torch.ops.rasterize import (blend_inputs, blend_instances, compose_output,
-                                               emission_order, rasterize)
+                                               rasterize)
     from tpu_splat_torch.render import max_instances_for, render_view
     from tpu_splat_torch.training import strategy_mcmc
     from tpu_splat_torch.training.losses import photometric_loss, regularization_losses
@@ -1237,45 +1421,9 @@ def main() -> int:
             phase(f"k3-random-{tag}-{layout}", k2_max_abs_err=err, k3_rel_err=rel,
                   k3_max_abs_grad=float(gflat_plain.abs().max()), pairs=pairs)
 
-    # -- K4 against its plain version on random runs (empty runs, one very long run)
-    rng = np.random.default_rng(4)
-    run_len = rng.integers(0, 9, 200_000)
-    run_len[rng.random(run_len.size) < 0.25] = 0
-    run_len[70_000] = 300_000
-    run_end = np.cumsum(run_len)
-    k4_args = (torch.randn((10, int(run_end[-1]) + 1000), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(4)),
-               torch.from_numpy((run_end - run_len).astype(np.int32)).to(dev),
-               torch.from_numpy(run_end.astype(np.int32)).to(dev))
-    k4_random_err = check_segsum(segsum_emission(*k4_args), segsum_emission_plain(*k4_args),
-                                 *k4_args, "K4 random runs")
-    phase("k4-random", max_abs_err=k4_random_err, runs=int(run_len.size),
-          empty_runs=int((run_len == 0).sum()), longest_run=int(run_len.max()))
-
-    # -- K4 with 17 rows and K7 (10 and 17 rows) on the same runs: ranks as K1 leaves them,
-    # the slots past the last run repeating the last owner
-    last_owner = int(np.nonzero(run_len)[0][-1])
-    run_rank = torch.from_numpy(np.concatenate([
-        np.repeat(np.arange(run_len.size, dtype=np.int32), run_len),
-        np.full(1000, last_owner, np.int32)])).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    k7_random_err = 0.0
-    for n_rows in (10, 17):
-        rows_r = torch.randn((n_rows, run_rank.shape[0]), device=dev, generator=gen)
-        # magnitudes over eleven decades, as gradient rows have
-        rows_r *= torch.pow(10.0, torch.randint(-8, 3, (1, run_rank.shape[0]), device=dev,
-                                                generator=gen).float())
-        got = segred_prefix(rows_r, run_rank)
-        want = segred_prefix_plain(rows_r, run_rank)
-        k7_random_err = max(k7_random_err, check_prefix(got, want, rows_r, run_rank,
-                                                        f"K7 random runs, {n_rows} rows"))
-    k4_17_args = (rows_r, *k4_args[1:])
-    k4_17_random_err = check_segsum(segsum_emission(*k4_17_args),
-                                    segsum_emission_plain(*k4_17_args), *k4_17_args,
-                                    "K4 random runs, 17 rows")
-    phase("k7-random", max_abs_err=k7_random_err, k4_17_rows_max_abs_err=k4_17_random_err,
-          slots=int(run_rank.shape[0]), longest_run=int(run_len.max()))
-    del rows_r, got, want, k4_17_args
+    # -- K4 and K7 against their plain versions on random runs, through the emission->column
+    # index and in emission order
+    segred_random = segred_random_phases(dev)
 
     # -- K5 and K6 against their plain versions on random unaligned segments, rays 4 and 8
     # wide (8: per-pixel origin offsets), and on segments whose splats graze the kernels'
@@ -1445,13 +1593,15 @@ def main() -> int:
     for fn in counted:
         fn.launches = 0
     ts, stats, step_wall = ts0, [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, **step_kw)
-        torch.cuda.synchronize()
-        step_wall.append((time.perf_counter() - t0) * 1e3)
-        stats.append(st)
+    with calls_counted(raster, "emission_order") as gathers:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, **step_kw)
+            torch.cuda.synchronize()
+            step_wall.append((time.perf_counter() - t0) * 1e3)
+            stats.append(st)
+    require(gathers[0] == 0, "a train step gathered its gradient rows to emission order")
     n_alive_trained = int(ts.splat.n_alive())
     ts_refined, info = refine_step(ts, min_opacity=0.005, max_cap=N_GAUSS)
     torch.cuda.synchronize()
@@ -1528,26 +1678,13 @@ def main() -> int:
     check_blend_bwd_repeats(blend_backward, *bwd_t, label="K3 train frame", **tkw)
     pairs_t = check_stops(k2b[1], k2b_plain[1], unpack_features(flat_t), (seg_t, count_t),
                           tkw, "K2 bf16 train frame")
-    rows_t = emission_order(k3, inst_t.sorted_emis)
-    k4_in = (rows_t, inst_t.emis_start, inst_t.emis_end)
-    k4 = segsum_emission(*k4_in)
-    k4_plain = segsum_emission_plain(*k4_in)
-    k4_err = check_segsum(k4, k4_plain, *k4_in, "K4 train frame")
     torch.cuda.synchronize()
 
     k2b_ms = cuda_ms(lambda: blend_forward(flat_t, seg_t, count_t, **tkw), 10)
     k2b_plain_ms = cuda_ms(lambda: blend_forward_plain(flat_t, seg_t, count_t, **tkw), 2, warmup=1)
     k3_ms = cuda_ms(lambda: blend_backward(*bwd_t, **tkw), 10)
     k3_plain_ms = cuda_ms(lambda: blend_backward_plain(*bwd_t, **tkw), 2, warmup=1)
-    k4_ms = cuda_ms(lambda: segsum_emission(*k4_in), 20)
-    k4_plain_ms = cuda_ms(lambda: segsum_emission_plain(*k4_in), 5)
-    rank_long = inst_t.emis_rank.long()
-
-    def library_segsum():  # one PyTorch call: index_add_ of the rows by their owner
-        return torch.zeros((10, N_GAUSS), device=dev).index_add_(1, rank_long, rows_t)
-
-    check_segsum(library_segsum(), k4_plain, *k4_in, "K4 library yardstick")
-    k4_lib_ms = cuda_ms(library_segsum, 20)
+    k4 = segsum_step_kernel(k3, inst_t, "K4 train frame")
 
     n_slots_t = int(inst_t.total_instances)
     tp_t = gw_t * gh_t * TILE_T * TILE_T
@@ -1555,15 +1692,12 @@ def main() -> int:
     k3_bytes = 32 * n_valid_t + 8 * gw_t * gh_t + 4 * tp_t * (16 + maxc_t) + 40 * n_valid_t
     k2b_ops = K2_OPS_PER_PAIR * (pairs_t["used"] + pairs_t["stops"])
     k3_ops = k2b_ops + K3_OPS_PER_USED_PAIR * pairs_t["used"]
-    k4_bytes = 40 * n_slots_t + 48 * N_GAUSS
 
     for name, source, replaces, fn_name, err, ms, plain_ms, (b_ms, b_by), lib in (
         ("blend_fwd_bf16", "blend_fwd.cu", "blend.py:370", "blend_forward", k2b_err, k2b_ms,
          k2b_plain_ms, bound_ms(k2b_bytes, k2b_ops), None),
         ("blend_bwd", "blend_bwd.cu", "blend.py:564", "blend_backward", k3_err, k3_ms,
          k3_plain_ms, bound_ms(k3_bytes, k3_ops), None),
-        ("segsum", "segsum.cu", "raster.py:693", "segsum_emission", k4_err, k4_ms,
-         k4_plain_ms, bound_ms(k4_bytes, 10 * n_slots_t), k4_lib_ms),
     ):
         kernels.append(dict(
             name=name, route="cuda", source=f"tpu_splat_torch/csrc/{source}",
@@ -1571,16 +1705,19 @@ def main() -> int:
             replaces=f"tpu_splat/ops/pallas/{replaces}", launches=train_launches[fn_name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib))
+    kernels.append(kernel_entry(
+        "segsum", "segsum.cu", "raster.py:693",
+        "train step: K3's tile-sorted rows through emis_col, 10 rows",
+        train_launches["segsum_emission"], k4))
     phase("train-kernel-times", k2_bf16_bytes=k2b_bytes, k2_bf16_ops=k2b_ops, k3_bytes=k3_bytes,
-          k3_ops=k3_ops, k4_bytes=k4_bytes, pairs=pairs_t, tile_instances=n_valid_t,
-          emission_slots=n_slots_t, k3_rel_err=k3_err, k4_max_abs_err=k4_err,
-          k4_random_max_abs_err=k4_random_err)
-    del k2b, k2b_plain, k3, k3_plain, k4, k4_plain, rows_t, inst_t, flat_t, bwd_t
+          k3_ops=k3_ops, pairs=pairs_t, tile_instances=n_valid_t, emission_slots=n_slots_t,
+          k3_rel_err=k3_err, k4=k4)
+    del k2b, k2b_plain, k3, k3_plain, inst_t, flat_t, bwd_t
     torch.cuda.empty_cache()
 
     # -- the step's split: the stages of train_step, each between two CUDA events
-    stage_names = ("project", "instances", "pack", "blend_fwd", "loss", "blend_bwd", "gather",
-                   "segsum", "project_bwd", "adam", "noise")
+    stage_names = ("project", "instances", "pack", "blend_fwd", "loss", "blend_bwd", "segsum",
+                   "project_bwd", "adam", "noise")
     split = {k: [] for k in stage_names}
     target_t = target
     lrs = dict(group_lrs(cfg, sp.scene_scale))
@@ -1611,24 +1748,22 @@ def main() -> int:
         ev[5].record()
         gf = blend_backward(fl, sg, ct, c, o, go.contiguous(), **tkw)
         ev[6].record()
-        rw = emission_order(gf, si.sorted_emis)
+        g_gtab = segmented_grad_reduce(gf, si)
         ev[7].record()
-        g_gtab = segsum_emission(rw, si.emis_start, si.emis_end)
-        ev[8].record()
         reg = regularization_losses(leaves, sp.alive, cfg.scale_reg, cfg.opacity_reg)
         grads = torch.autograd.grad([gtab, reg], list(leaves.values()),
                                     [g_gtab, torch.ones_like(reg)], allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(leaves, grads)}
-        ev[9].record()
+        ev[8].record()
         lrs["means"] = means_lr_at(group_lrs(cfg, sp.scene_scale)["means"], ts.iteration - 1,
                                    30_000)
         new_params, _ = adam_step(sp.params(), grads, ts.adam, lrs, ts.iteration)
-        ev[10].record()
+        ev[9].record()
         strategy_mcmc.inject_noise(sp.replace_params(new_params), lrs["means"],
                                    generator=ts.rng)
-        ev[11].record()
-        ev[11].synchronize()
+        ev[10].record()
+        ev[10].synchronize()
         for i, k in enumerate(stage_names):
             split[k].append(ev[i].elapsed_time(ev[i + 1]))
     split_ms = {k: statistics.median(v[1:]) for k, v in split.items()}
@@ -1645,8 +1780,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     gut = gut_phases(params, focal, dev, counted, kernels)
     gut.update(k5_random_max_abs_err=k5_random_err, k6_random_rel_err=k6_random_err,
-               k7_random_max_abs_err=k7_random_err,
-               k4_17_random_max_abs_err=k4_17_random_err)
+               segred_random=segred_random)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)

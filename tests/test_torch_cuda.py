@@ -10,12 +10,16 @@ in both layouts (rtol 1e-5 on the accumulated depth), its stop decisions (zero c
 exactly; K3 bit-equal on two launches, and max abs error <= 1e-4 of the
 largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
 order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
-running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds);
+running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds), and
+bit-equal to the plain version on every run of at most LONG_RUN slots (the same adds in the
+same order);
 K5 as K2 and K6 as K3, for rays 4 and 8 wide, on random segments and on splats that graze
 the kernels' warp ray cones through each camera model (a decision mismatch would show as a
 whole instance's colour, far above 1e-5); K7 rtol 1e-5 plus 1e-5 of the prefix of the rows'
-absolute values over the same run (a shuffle tree and a fold of block carries against
-masked shifted adds: only the order of float32 adds differs);
+absolute values over the same run (a shuffle tree and a fold of block aggregates against
+masked shifted adds: only the order of float32 adds differs); K4 and K7 also through the
+emission->column index (rows in a random tile-sorted order), and the same bits on two
+launches;
 the train step through the kernels against the same step through the plain versions:
 loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
 move a parameter by lr * sign(g) where |g| is tiny, so a rounding-level difference in a
@@ -32,9 +36,10 @@ from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backwar
                                             pack_features_bf16, unpack_features)
 from tpu_splat_torch.ops.cuda.gut_kernels import gut_blend_forward
 from tpu_splat_torch.ops.cameras import CameraParams
-from tpu_splat_torch.ops.cuda.raster import (expand_emission, expand_emission_plain,
-                                             segred_prefix, segred_prefix_plain,
-                                             segsum_emission, segsum_emission_plain)
+from tpu_splat_torch.ops.cuda.raster import (LONG_RUN, emission_columns, expand_emission,
+                                             expand_emission_plain, segred_prefix,
+                                             segred_prefix_plain, segsum_emission,
+                                             segsum_emission_plain)
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
@@ -238,3 +243,79 @@ def test_train_step_through_kernels_matches_plain_on_card(mode):
     for k, v in ts_k.splat.params().items():
         off = ((v - ts_p.splat.params()[k]).abs() > 1e-5).float().mean()
         assert float(off) <= 1e-2, (k, float(off))
+
+
+def _tile_sorted_on_card(rows, gen):
+    """Rows in a random tile-sorted order and the emission->column index that reads them
+    back in emission order."""
+    sorted_emis = torch.randperm(rows.shape[1], device=rows.device, generator=gen)
+    return rows.index_select(1, sorted_emis), emission_columns(sorted_emis.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [NFEAT, 17])
+def test_segsum_kernel_through_cols_matches_plain_on_card(n_rows):
+    _require_cuda()
+    dev = torch.device("cuda")
+    counts, start, end, total = emission_runs(seed=4, n=50_000, long_run=40_000)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randn((n_rows, total + 1000), device=dev, generator=gen)
+    gflat, cols = _tile_sorted_on_card(rows, gen)
+    args = (gflat, torch.from_numpy(start).to(dev), torch.from_numpy(end).to(dev), cols)
+    got = segsum_emission(*args)
+    want = segsum_emission_plain(*args)
+    again = segsum_emission(*args)
+    torch.cuda.synchronize()
+    scale = torch.from_numpy(np.sqrt(np.maximum(counts, 1)).astype(np.float32)).to(dev)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * scale).all())
+    assert bool((got[:, torch.from_numpy(counts == 0).to(dev)] == 0).all())
+    short = torch.from_numpy(counts <= LONG_RUN).to(dev)
+    assert torch.equal(got[:, short], want[:, short])
+    assert torch.equal(again, got)
+
+
+def _prefix_case(dev, n_rows, n, long_run, tail, seed):
+    counts, _, _, _ = emission_runs(seed=seed, n=n, long_run=long_run)
+    last_owner = int(np.nonzero(counts)[0][-1])
+    rank = np.concatenate([np.repeat(np.arange(n, dtype=np.int32), counts),
+                           np.full(tail, last_owner, np.int32)])  # the tail convention
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((n_rows, rank.size), device=dev, generator=gen)
+    rows *= torch.pow(10.0, torch.randint(-8, 3, (1, rank.size), device=dev, generator=gen))
+    return rows, torch.from_numpy(rank).to(dev), gen
+
+
+def _check_prefix_on_card(got, rows, rank):
+    want = segred_prefix_plain(rows, rank)
+    magnitude = segred_prefix_plain(rows.abs(), rank)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * magnitude).all())
+    heads = torch.ones_like(rank, dtype=torch.bool)
+    heads[1:] = rank[1:] != rank[:-1]
+    assert torch.equal(got[:, heads], rows[:, heads])  # a run head holds its own row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [10, 17])
+def test_segprefix_kernel_through_cols_matches_plain_on_card(n_rows):
+    """A run of 120,000 slots spans 118 blocks of 1024; about 500 blocks in all."""
+    _require_cuda()
+    rows, rank, gen = _prefix_case(torch.device("cuda"), n_rows, 50_000, 120_000, 3000, 6)
+    gflat, cols = _tile_sorted_on_card(rows, gen)
+    got = segred_prefix(gflat, rank, cols)
+    again = segred_prefix(gflat, rank, cols)
+    _check_prefix_on_card(got, rows, rank)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [10, 17])
+@pytest.mark.parametrize("m", [700, 1024, 5 * 1024 + 77])
+def test_segprefix_kernel_on_short_and_ragged_axes_on_card(n_rows, m):
+    """An axis shorter than one block, exactly one block, and five blocks and a part."""
+    _require_cuda()
+    rows, rank, gen = _prefix_case(torch.device("cuda"), n_rows, 2000, 300, 0, 7)
+    rows, rank = rows[:, :m].contiguous(), rank[:m].contiguous()
+    gflat, cols = _tile_sorted_on_card(rows, gen)
+    for got in (segred_prefix(rows, rank), segred_prefix(gflat, rank, cols)):
+        _check_prefix_on_card(got, rows, rank)

@@ -79,7 +79,8 @@ def _jax_pack(inst, gtab, n_tiles, max_chunks):
     """The JAX side's chunk-aligned pack of the same instances, and for every column of
     the port's `flat` its aligned slot (-1 for columns that no tile owns)."""
     as_j = lambda x: jnp.asarray(x.numpy())
-    inst_j = jr.SortedInstances(**{k: as_j(getattr(inst, k)) for k in inst._fields}, gtab=None)
+    inst_j = jr.SortedInstances(**{k: as_j(getattr(inst, k)) for k in jr.SortedInstances._fields
+                                   if k != "gtab"}, gtab=None)
     row_start, count, aligned_gid, _, max_aligned, n_rows = jr.align_segments(
         inst_j, n_tiles, max_chunks)
     feats = jnp.pad(as_j(gtab).T[aligned_gid], ((0, 0), (0, jg.NFEAT_GUT - NFEAT_GUT)))

@@ -38,12 +38,12 @@ ENTRY_POINTS = {
                   (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
     "blend_bwd": ("tpu_splat_blend_bwd",
                   (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
-    "segsum": ("tpu_splat_segsum", (_P, _I, _L, _I, _P, _P, _I, _P, _L, _P)),
+    "segsum": ("tpu_splat_segsum", (_P, _I, _L, _P, _I, _I, _P, _P, _I, _P, _L, _P)),
     "gut_fwd": ("tpu_splat_gut_fwd",
                 (_P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "gut_bwd": ("tpu_splat_gut_bwd",
                 (_P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
-    "segprefix": ("tpu_splat_segprefix", (_P, _I, _L, _I, _P, _P, _P, _P, _I, _P)),
+    "segprefix": ("tpu_splat_segprefix", (_P, _I, _L, _P, _I, _I, _P, _P, _P, _P, _I, _P)),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -13,12 +13,15 @@ K1 `expand_emission` launches `csrc/expand.cu` on a CUDA tensor and runs its pla
 version, `expand_emission_plain`, on a CPU tensor. K4 `segsum_emission` (counterpart of
 `tpu_splat/ops/pallas/raster.py::segsum_emission`) does the same with `csrc/segsum.cu` and
 `segsum_emission_plain`: the backward of the feature pack, which sums each Gaussian's
-contiguous run of emission-order gradient rows (10 rows on the pinhole path, 17 on the GUT
+contiguous run of emission slots (10 gradient rows on the pinhole path, 17 on the GUT
 path). K7 `segred_prefix` (counterpart of `segred_prefix_pallas`, `csrc/segprefix.cu`,
-`segred_prefix_plain`) is the segmented inclusive prefix over the same runs.
-`segmented_grad_reduce` (counterpart of the JAX function of that name) turns tile-sorted
-per-instance rows into per-Gaussian totals through either of them, chosen by its `impl`
-argument.
+`segred_prefix_plain`) is the segmented inclusive prefix over the same runs. Both read
+slot e's rows either at column e (emission-order rows, the JAX kernels' contract) or,
+given the emission->column index `cols` (`SortedInstances.emis_col`), at column cols[e]
+of the tile-sorted rows the blend backward wrote, so no gather to emission order precedes
+them. `segmented_grad_reduce` (counterpart of the JAX function of that name) turns
+tile-sorted per-instance rows into per-Gaussian totals through either of them, chosen by
+its `impl` argument.
 """
 
 from __future__ import annotations
@@ -112,6 +115,18 @@ class SortedInstances(NamedTuple):
     total_instances: torch.Tensor  # [] int32 (conservative rect total)
     max_tile_count: torch.Tensor  # [] int32
     n_visible: torch.Tensor  # [] int32
+    # [MAX_INST] int32 — tile-sorted column of each emission slot, the inverse of
+    # sorted_emis (None: segmented_grad_reduce builds it from sorted_emis)
+    emis_col: torch.Tensor | None = None
+
+
+def emission_columns(sorted_emis: torch.Tensor) -> torch.Tensor:
+    """The emission->column index: the inverse permutation of `sorted_emis`,
+    emis_col[sorted_emis[c]] = c. One int32 scatter of M."""
+    m = sorted_emis.shape[0]
+    cols = torch.empty_like(sorted_emis, dtype=torch.int32)
+    return cols.scatter_(0, sorted_emis.long(),
+                         torch.arange(m, dtype=torch.int32, device=sorted_emis.device))
 
 
 def feature_table(proj: Projected) -> torch.Tensor:
@@ -220,20 +235,51 @@ def build_sorted_instances(
         total_instances=total,
         max_tile_count=tile_count.max(),
         n_visible=proj.visible.sum(dtype=torch.int32),
+        emis_col=emission_columns(sorted_emis),
     )
 
 
 ROW_COUNTS = (NFEAT, 17)  # gradient rows of the pinhole blend and of the GUT blend
 
 
-def _check_rows(rows):
+def _check_rows(rows, cols):
     if rows.dim() != 2 or rows.shape[0] not in ROW_COUNTS or rows.dtype != torch.float32:
         raise ValueError(f"rows must be float32 [{ROW_COUNTS[0]} or {ROW_COUNTS[1]}, M], "
                          f"got {rows.dtype} {tuple(rows.shape)}")
+    if cols is not None and (cols.dim() != 1 or cols.dtype != torch.int32):
+        raise ValueError(f"cols must be int32 [M], got {cols.dtype} {tuple(cols.shape)}")
 
 
-def _check_segsum_inputs(rows, emis_start, emis_end):
-    _check_rows(rows)
+def _n_slots(rows, cols) -> int:
+    """Length of the emission axis: one slot per column of `rows`, or per entry of `cols`."""
+    return rows.shape[1] if cols is None else cols.shape[0]
+
+
+PASS_ROWS = (1, 2, 3, 5, 10, 17)  # rows a grid pass of K4 or K7 may read (csrc launch_rows)
+L2_PASS_BYTES = 24 << 20  # half the H100's 50 MB L2
+
+
+def rows_per_pass(rows, cols) -> int:
+    """Rows of `rows` one grid pass of K4 or K7 reads. Through `cols` the reads land at
+    random columns, each value in a 32-byte sector of its row: a pass reads as many rows as
+    fit in L2_PASS_BYTES (at least one), so a sector read for one column stays in L2 for the
+    other seven it holds. In emission order the reads are coalesced and one pass reads all
+    the rows."""
+    n_rows, width = rows.shape
+    if cols is None:
+        return n_rows
+    return max(g for g in PASS_ROWS
+               if g <= n_rows and (g == 1 or 4 * g * width <= L2_PASS_BYTES))
+
+
+def _emission_rows(rows, cols):
+    """Emission-order rows: `rows` itself, or its columns cols[e] (exact copies, the same
+    values `emission_order` leaves at slot e)."""
+    return rows if cols is None else rows.index_select(1, cols)
+
+
+def _check_segsum_inputs(rows, emis_start, emis_end, cols):
+    _check_rows(rows, cols)
     n = emis_start.shape[0]
     for name, x in (("emis_start", emis_start), ("emis_end", emis_end)):
         if x.shape != (n,) or x.dtype != torch.int32:
@@ -244,16 +290,18 @@ LONG_RUN = 64  # runs up to this length are summed slot by slot (csrc/segsum.cu 
 
 
 @torch.no_grad()
-def segsum_emission_plain(rows, emis_start, emis_end):
+def segsum_emission_plain(rows, emis_start, emis_end, cols=None):
     """Plain version of K4. Runs of up to LONG_RUN slots are summed slot by slot, all
     Gaussians at once: step k adds slot start + k of every run that has one, the order
     the kernel's thread walks its run in. The few longer runs are summed one by one in
     float64. (A difference of two running sums over the whole emission axis would not do:
     gradient magnitudes span more than ten decades, and a small run's sum drowns in the
-    rounding of a large prefix.)
+    rounding of a large prefix.) With `cols`, slot e's rows are column cols[e] of `rows`,
+    gathered first.
 
-    -> [F, N] float32, out[f, g] = sum of rows[f, emis_start[g]:emis_end[g]]."""
-    _check_segsum_inputs(rows, emis_start, emis_end)
+    -> [F, N] float32, out[f, g] = sum of the rows of slots emis_start[g]:emis_end[g]."""
+    _check_segsum_inputs(rows, emis_start, emis_end, cols)
+    rows = _emission_rows(rows, cols)
     m = rows.shape[1]
     end = emis_end.long().clamp(0, m)
     start = torch.minimum(emis_start.long().clamp_min(0), end)
@@ -272,22 +320,28 @@ def segsum_emission_plain(rows, emis_start, emis_end):
     return out
 
 
-def segsum_emission(rows, emis_start, emis_end):
-    """K4: per-Gaussian sums of emission-order rows. CPU tensors run the plain version;
-    CUDA tensors launch `csrc/segsum.cu` (one thread per Gaussian, a warp per long run)
-    or raise.
+def segsum_emission(rows, emis_start, emis_end, cols=None):
+    """K4: per-Gaussian sums over emission slots. CPU tensors run the plain version; CUDA
+    tensors launch `csrc/segsum.cu` (a block stages the slots of 256 Gaussians' runs in
+    shared memory and each thread sums its own run; the block strides over a long run
+    together; grid passes of `rows_per_pass` rows) or raise.
 
-    rows [F, M] float32 in emission order, F = 10 or 17; Gaussian g owns slots
+    rows [F, M'] float32, F = 10 or 17: slot e's rows are column e (emission order, M' =
+    M) or, given cols [M] int32, column cols[e] (the tile-sorted rows of the blend
+    backward and `SortedInstances.emis_col`). Gaussian g owns slots
     [emis_start[g], emis_end[g]). -> [F, N] float32, zero for an empty run."""
     if rows.device.type == "cpu":
-        return segsum_emission_plain(rows, emis_start, emis_end)
-    _check_segsum_inputs(rows, emis_start, emis_end)
-    require_cuda(rows, rows=rows, emis_start=emis_start, emis_end=emis_end)
+        return segsum_emission_plain(rows, emis_start, emis_end, cols)
+    _check_segsum_inputs(rows, emis_start, emis_end, cols)
+    require_cuda(rows, rows=rows, emis_start=emis_start, emis_end=emis_end,
+                 **({} if cols is None else dict(cols=cols)))
     n = emis_start.shape[0]
     out = torch.empty((rows.shape[0], n), dtype=torch.float32, device=rows.device)
     err = kernel("segsum")(
-        rows.data_ptr(), rows.shape[0], rows.stride(0), rows.shape[1], emis_start.data_ptr(),
-        emis_end.data_ptr(), n, out.data_ptr(), out.stride(0),
+        rows.data_ptr(), rows.shape[0], rows.stride(0),
+        None if cols is None else cols.data_ptr(), _n_slots(rows, cols),
+        rows_per_pass(rows, cols), emis_start.data_ptr(), emis_end.data_ptr(), n,
+        out.data_ptr(), out.stride(0),
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     check(err, "segsum")
@@ -306,24 +360,25 @@ def _run_ids(rank):
     return torch.cumsum(head, 0) - 1
 
 
-def _check_prefix_inputs(rows, rank):
-    _check_rows(rows)
-    if rank.shape != (rows.shape[1],) or rank.dtype != torch.int32:
-        raise ValueError(f"rank must be int32 [{rows.shape[1]}], got {rank.dtype} "
-                         f"{tuple(rank.shape)}")
+def _check_prefix_inputs(rows, rank, cols):
+    _check_rows(rows, cols)
+    m = _n_slots(rows, cols)
+    if rank.shape != (m,) or rank.dtype != torch.int32:
+        raise ValueError(f"rank must be int32 [{m}], got {rank.dtype} {tuple(rank.shape)}")
 
 
 @torch.no_grad()
-def segred_prefix_plain(rows, rank):
+def segred_prefix_plain(rows, rank, cols=None):
     """Plain version of K7: a Hillis-Steele segmented scan over the whole slot axis,
     ceil(log2(longest run)) passes of masked shifted adds; every run restarts at its
     head. (Differences of one long cumsum would not do: gradient magnitudes span more than
-    ten decades and a small run's prefix drowns in the rounding of a large one.)
+    ten decades and a small run's prefix drowns in the rounding of a large one.) With
+    `cols`, slot e's rows are column cols[e] of `rows`, gathered first.
 
-    -> [F, M] float32, x[f, i] = sum of rows[f, j] over j <= i in the run of i."""
-    _check_prefix_inputs(rows, rank)
-    x = rows.clone()
-    if rows.shape[1] == 0:
+    -> [F, M] float32, x[f, i] = sum of the rows of slots j <= i in the run of i."""
+    _check_prefix_inputs(rows, rank, cols)
+    x = _emission_rows(rows, cols).clone()
+    if x.shape[1] == 0:
         return x
     rid = _run_ids(rank)
     longest = int(torch.bincount(rid).max())
@@ -336,31 +391,73 @@ def segred_prefix_plain(rows, rank):
     return x
 
 
-PREFIX_TILE = 1024  # slots per block of the first pass (csrc/segprefix.cu kTile)
+PREFIX_TILE = 1024  # slots a block scans (csrc/segprefix.cu kTile)
 
 
-def segred_prefix(rows, rank):
+@torch.no_grad()
+def segred_prefix_blocks(rows, rank, cols=None, tile: int = PREFIX_TILE):
+    """Plain twin of K7's block composition: each tile of `tile` slots is scanned on its
+    own (its runs restart at the tile's first slot) and publishes its aggregate, the sums
+    of its trailing run, and whether it holds a run head. The slots before a tile's first
+    head then add the carry: walking back over the tiles before it, c = agg[p] + c, until
+    a tile with a head. Only aggregates are combined, in that fixed order, as the kernel
+    does. -> the same as `segred_prefix_plain`, up to the order of float32 adds."""
+    _check_prefix_inputs(rows, rank, cols)
+    rows = _emission_rows(rows, cols)
+    m, dev = rows.shape[1], rows.device
+    if m == 0:
+        return rows.clone()
+    slot = torch.arange(m, device=dev)
+    block = torch.div(slot, tile, rounding_mode="floor")
+    local = segred_prefix_plain(rows, (_run_ids(rank) + block).to(torch.int32))
+    nb = -(-m // tile)
+    head = torch.ones(m, dtype=torch.bool, device=dev)
+    head[1:] = rank[1:] != rank[:-1]
+    starts = torch.arange(nb, device=dev) * tile
+    agg = local[:, (starts + tile).clamp_max(m) - 1]  # [F, nb] trailing-run sums
+    first = torch.full((nb,), tile, dtype=torch.long, device=dev).scatter_reduce(
+        0, block[head], slot[head] - block[head] * tile, reduce="amin")
+    has_head = first < (starts + tile).clamp_max(m) - starts
+    out = local
+    for b in range(1, nb):
+        n_before = int(first[b].clamp_max(m - b * tile))
+        if n_before == 0:
+            continue
+        carry = torch.zeros_like(agg[:, 0])
+        for p in range(b - 1, -1, -1):
+            carry = agg[:, p] + carry
+            if bool(has_head[p]):
+                break
+        s0 = b * tile
+        out[:, s0:s0 + n_before] = local[:, s0:s0 + n_before] + carry[:, None]
+    return out
+
+
+def segred_prefix(rows, rank, cols=None):
     """K7: segmented inclusive prefix over contiguous equal-rank runs. CPU tensors run the
-    plain version; CUDA tensors launch `csrc/segprefix.cu` or raise. The library makes
-    three launches (block-local scans, a scan of the blocks' carries, the carry add); they
-    count as one kernel call.
+    plain version; CUDA tensors launch `csrc/segprefix.cu` or raise: one kernel (a
+    single-pass scan with a look-back over the blocks' aggregates, in passes of
+    `rows_per_pass` rows) after one cudaMemsetAsync of its flags.
 
-    rows [F, M] float32 in emission order, F = 10 or 17; rank [M] int32.
-    -> [F, M] float32, x[f, i] = sum of rows[f, j] over j <= i in the run of i."""
+    rows [F, M'] float32, F = 10 or 17: slot e's rows are column e (emission order, M' =
+    M) or, given cols [M] int32, column cols[e]; rank [M] int32.
+    -> [F, M] float32, x[f, i] = sum of the rows of slots j <= i in the run of i."""
     if rows.device.type == "cpu":
-        return segred_prefix_plain(rows, rank)
-    _check_prefix_inputs(rows, rank)
-    require_cuda(rows, rows=rows, rank=rank)
-    m = rows.shape[1]
+        return segred_prefix_plain(rows, rank, cols)
+    _check_prefix_inputs(rows, rank, cols)
+    require_cuda(rows, rows=rows, rank=rank, **({} if cols is None else dict(cols=cols)))
+    m, g = _n_slots(rows, cols), rows_per_pass(rows, cols)
     nb = -(-m // PREFIX_TILE)
-    out = torch.empty_like(rows)
-    # per-block scratch: the trailing run's sums before and after the carry scan, the
-    # number of slots before the block's first run head, whether it has a head at all
-    agg = torch.empty((2, rows.shape[0], max(nb, 1)), dtype=torch.float32, device=rows.device)
-    first_len = torch.empty((2, max(nb, 1)), dtype=torch.int32, device=rows.device)
+    blocks = -(-rows.shape[0] // g) * nb  # passes of g rows, nb tiles each
+    out = torch.empty((rows.shape[0], m), dtype=torch.float32, device=rows.device)
+    # scratch: each block's trailing-run sums; one flag a block and, last, the ticket
+    # counter that orders the blocks (zeroed by the kernel's call)
+    agg = torch.empty((max(blocks, 1), g), dtype=torch.float32, device=rows.device)
+    state = torch.empty(blocks + 1, dtype=torch.int32, device=rows.device)
     err = kernel("segprefix")(
-        rows.data_ptr(), rows.shape[0], rows.stride(0), m, rank.data_ptr(), out.data_ptr(),
-        agg.data_ptr(), first_len.data_ptr(), nb,
+        rows.data_ptr(), rows.shape[0], rows.stride(0),
+        None if cols is None else cols.data_ptr(), m, g, rank.data_ptr(), out.data_ptr(),
+        agg.data_ptr(), state.data_ptr(), nb,
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     check(err, "segprefix")
@@ -375,7 +472,8 @@ def emission_order(gflat: torch.Tensor, sorted_emis: torch.Tensor) -> torch.Tens
     """Per-instance rows [F, M] in tile-sorted order -> emission order: column
     sorted_emis[c] of the result is column c of `gflat` (sorted_emis is a permutation of
     the M slots). Slots that failed the contribution test sorted to the unowned tail, so
-    they receive the backward kernel's zero columns."""
+    they receive the backward kernel's zero columns. The train step does not call it: K4
+    and K7 read `gflat` through `emis_col`; it stays as the reference of that index."""
     rows = torch.empty_like(gflat)
     rows.index_copy_(1, sorted_emis.long(), gflat)
     return rows
@@ -387,7 +485,8 @@ SEGRED_IMPLS = ("segsum", "prefix")
 def segmented_grad_reduce(gflat, inst: SortedInstances, impl: str = "segsum",
                           kernels: bool = True):
     """Per-Gaussian gradient totals [F, N] from tile-sorted per-instance rows `gflat`
-    [F, M]: gather to emission order (each Gaussian's slots contiguous, in id order), then
+    [F, M], read in emission order (each Gaussian's slots contiguous, in id order) through
+    the emission->column index `inst.emis_col` (built from `sorted_emis` when None), by
     one of two lanes, named by `impl`:
 
       "segsum" (default): K4, the sum of each Gaussian's run;
@@ -398,16 +497,17 @@ def segmented_grad_reduce(gflat, inst: SortedInstances, impl: str = "segsum",
     `kernels=False` runs the plain versions on any device."""
     if impl not in SEGRED_IMPLS:
         raise ValueError(f"impl must be one of {SEGRED_IMPLS}, got {impl!r}")
-    rows = emission_order(gflat, inst.sorted_emis)
+    cols = inst.emis_col if inst.emis_col is not None else emission_columns(inst.sorted_emis)
     if impl == "segsum":
         fn = segsum_emission if kernels else segsum_emission_plain
-        return fn(rows, inst.emis_start, inst.emis_end)
-    x = (segred_prefix if kernels else segred_prefix_plain)(rows, inst.emis_rank)
-    last = (inst.emis_end.long() - 1).clamp(0, max(rows.shape[1] - 1, 0))
+        return fn(gflat, inst.emis_start, inst.emis_end, cols)
+    x = (segred_prefix if kernels else segred_prefix_plain)(gflat, inst.emis_rank, cols)
+    last = (inst.emis_end.long() - 1).clamp(0, max(x.shape[1] - 1, 0))
     return x.index_select(1, last) * (inst.emis_end > inst.emis_start)
 
 
-__all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_order",
-           "emission_tables", "expand_emission", "expand_emission_plain", "feature_table",
-           "segmented_grad_reduce", "segred_prefix", "segred_prefix_plain",
-           "segsum_emission", "segsum_emission_plain"]
+__all__ = ["NFEAT", "SortedInstances", "build_sorted_instances", "emission_columns",
+           "emission_order", "emission_tables", "expand_emission", "expand_emission_plain",
+           "feature_table", "rows_per_pass", "segmented_grad_reduce", "segred_prefix",
+           "segred_prefix_blocks", "segred_prefix_plain", "segsum_emission",
+           "segsum_emission_plain"]

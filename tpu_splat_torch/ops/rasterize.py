@@ -6,7 +6,8 @@
 It is differentiable: tensors that require grad keep their graph. Projection, SH and the
 image assembly go through autograd; the tile blend is one `torch.autograd.Function`
 (`BlendTiles`, counterpart of `blend_tiles_pallas`'s custom VJP) whose backward is
-blend_backward (K3) -> emission-order gather -> segsum_emission (K4). The instance lists
+blend_backward (K3) -> segmented_grad_reduce (K4, reading K3's tile-sorted rows through
+the emission->column index). The instance lists
 (which tile sees which Gaussian, in what order) carry no gradient, as in the JAX package.
 
 There is one pipeline on every device: on a CUDA device the wrappers launch the kernels,
@@ -29,8 +30,8 @@ import torch
 from ..device import resolve_device
 from .cuda.blend import (blend_backward, blend_backward_plain, blend_forward,
                          blend_forward_plain, pack_features_bf16)
-from .cuda.raster import (SortedInstances, build_sorted_instances, emission_order,
-                          feature_table, segsum_emission, segsum_emission_plain)
+from .cuda.raster import (SortedInstances, build_sorted_instances, feature_table,
+                          segmented_grad_reduce)
 from .projection import Projected, project
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB_D", "RGB_ED")
@@ -84,7 +85,7 @@ def blend_inputs(inst: SortedInstances, gtab: torch.Tensor, *, k_max: int, chunk
 
 
 class BlendTiles(torch.autograd.Function):
-    """Feature pack + K2 forward; K3 -> emission-order gather -> K4 backward.
+    """Feature pack + K2 forward; K3 -> `segmented_grad_reduce` (K4) backward.
 
     forward(gtab [NFEAT, N], inst, dims) -> out [T, P, 8] (rgb, T_final, depth, 0, 0, 0).
     The only differentiable input is `gtab`; its gradient is the per-Gaussian sum of the
@@ -101,20 +102,16 @@ class BlendTiles(torch.autograd.Function):
                   tile_size=dims["tile_size"], max_chunks=max_chunks, chunk=dims["chunk"])
         fwd = blend_forward if impl == "kernel" else blend_forward_plain
         out, chk = fwd(flat, seg_start, count, **kw)
-        ctx.save_for_backward(flat, seg_start, count, chk, out, inst.sorted_emis,
-                              inst.emis_start, inst.emis_end)
-        ctx.kw, ctx.impl = kw, impl
+        ctx.save_for_backward(flat, seg_start, count, chk, out)
+        ctx.inst, ctx.kw, ctx.impl = inst, kw, impl
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        flat, seg_start, count, chk, out, sorted_emis, emis_start, emis_end = ctx.saved_tensors
         kernels = ctx.impl == "kernel"
         bwd = blend_backward if kernels else blend_backward_plain
-        gflat = bwd(flat, seg_start, count, chk, out, gout.contiguous(), **ctx.kw)
-        rows = emission_order(gflat, sorted_emis)
-        segsum = segsum_emission if kernels else segsum_emission_plain
-        return segsum(rows, emis_start, emis_end), None, None, None
+        gflat = bwd(*ctx.saved_tensors, gout.contiguous(), **ctx.kw)
+        return segmented_grad_reduce(gflat, ctx.inst, kernels=kernels), None, None, None
 
 
 def blend_instances(inst: SortedInstances, gtab: torch.Tensor, *, grid_w: int, grid_h: int,
