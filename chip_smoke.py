@@ -59,11 +59,25 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    counts), K6 (and its repeatability), K7 and 17-row K4 (through `emis_col`, as at the
    pinhole step) against their plain versions on the step's own inputs, their times, the
    GUT frame's time and the GUT step's stage split;
-10. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
+10. drives the product path (`trainer_phases`): writes a COLMAP capture with the port's own
+   code (12 PNG views of the scene at 1296x840 from perturbed poses, 150k of its means as
+   SfM points, binary model files; and the same capture declared OPENCV with k1 = 0.05),
+   trains it through `Trainer` (96 iterations, capacity 2^20, SH degree 3 reached, refines,
+   evals on 2 val views, started from a plan of one slot per SfM point so that the
+   overflow->redo protocol runs) and through `Trainer` with `--gut` on the OPENCV
+   declaration (32 iterations), with every launch count set to 0 just before each
+   `train()` and read just after: K1-K4 once a step (K1, K2 also once an eval render), K1,
+   K5, K6 and K4 once a GUT step; a replan and a redo, falling losses, a rising eval PSNR,
+   `splat_final.ply` with n == n_alive, `metrics.csv`; then `python -m tpu_splat_torch -d
+   CAPTURE -o OUT --headless -i 16` in a subprocess;
+11. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
    counts; K5 and K6 with their pair counts and ptxas' registers and spills), a `frame`
    JSON line (frame ms and per-stage split), a `train` JSON line (step
    ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
-   step) and, last, {"ok": true, "device": {...}}.
+   step), a `trainer` JSON line (the capture, it/s with data loading and its split into
+   data wait, dispatch, pending checks, hooks, eval and save, the plan history, redos,
+   launches, losses, eval PSNR/SSIM of the pinhole run; the same for the GUT run; the CLI
+   run's time) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
 it exits non-zero before printing any result. Times are medians over CUDA-event-timed
@@ -114,6 +128,10 @@ TILE_T, CHUNK_T = 32, 256  # the trainer's plan (bench.py:91)
 TILE_F, CHUNK_F, K_MAX_F = 16, 128, 4096  # render_view's plan
 CHUNK_GUT = 128  # the GUT blend's chunk (tpu_splat/ops/pallas/blend.py CHUNK)
 GUT_STEPS, GUT_PREFIX_STEPS = 20, 6  # the last six through the K7 lane
+# the trainer phase: a 12-view capture at WIDTH x HEIGHT with 150k SfM points (the order of
+# a real sparse model: the kNN init is O(N^2)), and the iterations of its three runs
+TRAINER_VIEWS, TRAINER_SFM = 12, 150_000
+TRAINER_ITERS, TRAINER_GUT_ITERS, TRAINER_CLI_ITERS = 96, 32, 16
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -1260,6 +1278,290 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         gradient_rel_err=grad_err, step_pairs=pairs, frame_kernels=frame_k, ptxas=regs)
 
 
+def rotation_to_qvec(r: np.ndarray) -> np.ndarray:
+    """COLMAP's (w, x, y, z) unit quaternion of a rotation matrix (Shepperd's method)."""
+    r = np.asarray(r, np.float64)
+    tr = np.trace(r)
+    cands = [tr, r[0, 0], r[1, 1], r[2, 2]]
+    i = int(np.argmax(cands))
+    if i == 0:
+        s = 2.0 * math.sqrt(1.0 + tr)
+        q = [0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s]
+    else:
+        j, k = (i % 3) + 1, ((i + 1) % 3) + 1
+        a, b, c = i - 1, j - 1, k - 1
+        s = 2.0 * math.sqrt(1.0 + r[a, a] - r[b, b] - r[c, c])
+        q = [0.0] * 4
+        q[0] = (r[c, b] - r[b, c]) / s
+        q[i] = 0.25 * s
+        q[j] = (r[b, a] + r[a, b]) / s
+        q[k] = (r[c, a] + r[a, c]) / s
+    q = np.asarray(q)
+    return q / np.linalg.norm(q) * (1.0 if q[0] >= 0 else -1.0)
+
+
+def write_colmap_model(sparse: Path, views: list[dict], points: np.ndarray,
+                       colors_u8: np.ndarray, model: str = "PINHOLE",
+                       distortion=(0.0, 0.0, 0.0, 0.0)) -> None:
+    """Binary cameras.bin / images.bin / points3D.bin (COLMAP's documented layout), one
+    camera per view (dicts of R, T, fx, fy, cx, cy, width, height, name); `model` PINHOLE
+    (fx fy cx cy) or OPENCV (+ k1 k2 p1 p2)."""
+    sparse.mkdir(parents=True, exist_ok=True)
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for i, v in enumerate(views):
+            intr = (v["fx"], v["fy"], v["cx"], v["cy"])
+            if model == "OPENCV":
+                f.write(struct.pack("<iiQQ", i + 1, 4, v["width"], v["height"]))
+                f.write(struct.pack("<8d", *intr, *distortion))
+            else:
+                f.write(struct.pack("<iiQQ", i + 1, 1, v["width"], v["height"]))
+                f.write(struct.pack("<4d", *intr))
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for i, v in enumerate(views):
+            f.write(struct.pack("<i4d3di", i + 1, *rotation_to_qvec(v["R"]),
+                                *v["T"].astype(np.float64), i + 1))
+            f.write(v["name"].encode() + b"\x00" + struct.pack("<Q", 0))  # no 2D points
+    n = points.shape[0]
+    rec = np.zeros(n, np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                                ("err", "<f8"), ("track", "<u8")]))
+    rec["id"], rec["xyz"], rec["rgb"], rec["err"] = np.arange(1, n + 1), points, colors_u8, 0.5
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", n) + rec.tobytes())  # packed records, empty tracks
+
+
+def write_capture(root: Path, params, focal, dev) -> dict:
+    """A COLMAP capture of the scene written with the port's own code: TRAINER_VIEWS PNGs
+    at WIDTH x HEIGHT (encode_png), rendered by the port from small pose perturbations of
+    the identity camera the other phases use, and TRAINER_SFM of the scene's means with
+    their SH-0 colours as the sparse points; `sparse/0` declares PINHOLE cameras and
+    `opencv/sparse/0` (same images) OPENCV with k1 = 0.05. -> what was written"""
+    import torch
+
+    from tpu_splat_torch.convert import splat_from_numpy
+    from tpu_splat_torch.core.splat import C0
+    from tpu_splat_torch.io.image import save_image
+    from tpu_splat_torch.ops.rasterize import rasterize
+    from tpu_splat_torch.render import max_instances_for
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    n = params["means"].shape[0]
+    sp = splat_from_numpy(params, np.ones(n, bool), 3, dev)
+    (root / "images").mkdir(parents=True)
+    views = []
+    for i in range(TRAINER_VIEWS):
+        ax, ay, az = rng.uniform(-0.03, 0.03, 3)
+        c, s_ = np.cos([ax, ay, az]), np.sin([ax, ay, az])
+        rx = np.array([[1, 0, 0], [0, c[0], -s_[0]], [0, s_[0], c[0]]])
+        ry = np.array([[c[1], 0, s_[1]], [0, 1, 0], [-s_[1], 0, c[1]]])
+        rz = np.array([[c[2], -s_[2], 0], [s_[2], c[2], 0], [0, 0, 1]])
+        r = (rz @ ry @ rx).astype(np.float32)
+        t = rng.uniform(-0.15, 0.15, 3).astype(np.float32)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3], w2c[:3, 3] = r, t
+        with torch.no_grad():
+            img = rasterize(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0,
+                            sp.shN, sp.alive, w2c, -r.T @ t, focal, focal, WIDTH / 2.0,
+                            HEIGHT / 2.0, 3, np.zeros(3, np.float32), width=WIDTH,
+                            height=HEIGHT, max_instances=max_instances_for(n), k_max=K_MAX_F,
+                            tile_size=TILE_F, chunk=CHUNK_F, device=dev).image
+        name = f"view_{i:03d}.png"
+        save_image(str(root / "images" / name), img.cpu().numpy())
+        views.append(dict(R=r, T=t, fx=focal, fy=focal, cx=WIDTH / 2.0, cy=HEIGHT / 2.0,
+                          width=WIDTH, height=HEIGHT, name=name))
+    del sp
+    pick = rng.choice(n, TRAINER_SFM, replace=False)
+    colors = np.clip(0.5 + C0 * params["sh0"][pick, 0], 0.0, 1.0)
+    colors_u8 = np.round(colors * 255.0).astype(np.uint8)
+    write_colmap_model(root / "sparse" / "0", views, params["means"][pick], colors_u8)
+    opencv = root / "opencv"
+    opencv.mkdir()
+    (opencv / "images").symlink_to(root / "images")
+    write_colmap_model(opencv / "sparse" / "0", views, params["means"][pick], colors_u8,
+                       model="OPENCV", distortion=(0.05, 0.0, 0.0, 0.0))
+    return dict(views=TRAINER_VIEWS, width=WIDTH, height=HEIGHT, sfm_points=TRAINER_SFM,
+                png_bytes=sum(p.stat().st_size for p in (root / "images").iterdir()),
+                write_s=time.perf_counter() - t0)
+
+
+def trainer_run(params_kw: dict, data: Path, out: Path, dev, counted, plan=None):
+    """Train through the port's `Trainer` with every launch count set to 0 just before
+    `train()` and read just after. `plan`: the initial RasterPlan, in place of the
+    Trainer's own. -> (trainer, launches, wall seconds of train())"""
+    import torch
+
+    from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
+                                             TrainingParameters)
+    from tpu_splat_torch.training.trainer import Trainer
+
+    tp = TrainingParameters(dataset=DatasetConfig(data_path=str(data), output_path=str(out),
+                                                  test_every=6),
+                            optimization=OptimizationParameters(**params_kw))
+    t = Trainer(tp, device=dev)
+    t.initial_plan = t.plan
+    if plan is not None:
+        t.plan = plan
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    t.train(progress_every=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return t, {fn.__name__: fn.launches for fn in counted}, wall
+
+
+def trainer_summary(t, launches: dict, wall: float) -> dict:
+    iters = len(t._loss_hist)
+    loop = wall - t.timings["eval"] - t.timings["save"]
+    return dict(iterations=iters, wall_s=wall, it_per_s=iters / wall,
+                it_per_s_without_eval_and_save=iters / loop,
+                split_s=dict(t.timings), initial_plan=dataclasses.asdict(t.initial_plan),
+                plan=dataclasses.asdict(t.plan), plan_history=t.plan_history,
+                n_redo=t.n_redo, steps_dispatched=t.steps_dispatched,
+                eval_renders=t.eval_renders, launches=launches,
+                n_alive=int(t.state.splat.n_alive()), capacity=t.state.splat.capacity,
+                loss_first8=statistics.mean(t._loss_hist[:8]),
+                loss_last8=statistics.mean(t._loss_hist[-8:]),
+                evals=[dict(iteration=r.iteration, psnr=r.psnr, ssim=r.ssim,
+                            num_images=r.num_images, seconds=r.elapsed_s)
+                       for r in t.evaluator.results])
+
+
+def trainer_step_probe(t, reps: int = 6) -> dict:
+    """Wall ms of one synchronised step dispatched as the Trainer dispatches it
+    (`_dispatch_step`: host-to-device copies of the sample, `train_step`) on the trained
+    state and plan: alone, and while an `InfiniteDataLoader` over the train split (8
+    prefetch threads decoding PNGs) hands it one sample a step. Medians after 2 warm-ups.
+    What is not in these, of the Trainer's time a step, is its host loop."""
+    import torch
+
+    from tpu_splat_torch.training.dataset import InfiniteDataLoader
+
+    def timed(next_sample):
+        times = []
+        for i in range(reps + 2):
+            sample = next_sample()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._dispatch_step(sample, t.state.iteration)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[2:])
+
+    fixed = t.train_dataset.get(0)
+    alone = timed(lambda: fixed)
+    loader = InfiniteDataLoader(t.train_dataset, num_workers=8, seed=3)
+    try:
+        with_loader = timed(lambda: next(loader))
+    finally:
+        loader.close()
+    return dict(step_ms_alone=alone, step_ms_beside_loader=with_loader)
+
+
+def trainer_phases(params, focal, dev, counted) -> dict:
+    """The product path: `Trainer.train` on a COLMAP capture the port writes (pinhole,
+    with evals, refines and the overflow->redo protocol), the same capture declared OPENCV
+    through `--gut`, and `python -m tpu_splat_torch -d ... --headless` in a subprocess.
+    -> the `trainer` result line"""
+    import torch
+
+    from tpu_splat_torch.io.image import load_image
+    from tpu_splat_torch.io.ply import load_splat_ply
+    from tpu_splat_torch.training.train_step import RasterPlan
+    from tpu_splat_torch.training.trainer import _next_bucket
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        capture = write_capture(root / "capture", params, focal, dev)
+        png = sorted((root / "capture" / "images").iterdir())[0]
+        decode_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = load_image(png)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        require(img.shape == (3, HEIGHT, WIDTH), img.shape)
+        capture["png_load_ms"] = statistics.median(decode_ms)
+        phase("trainer-capture", **capture)
+        torch.cuda.empty_cache()
+
+        # -- pinhole: SH degree 3 reached, refines, evals; started from a plan of one slot
+        # per SfM point so that the overflow->redo protocol runs at this size
+        run_kw = dict(iterations=TRAINER_ITERS, max_cap=1_000_000, sh_degree=3,
+                      sh_degree_interval=TRAINER_ITERS // 4, scan_steps=8, refine_every=16,
+                      start_refine=16, stop_refine=TRAINER_ITERS - 8, enable_eval=True,
+                      eval_steps=[8, TRAINER_ITERS], save_steps=[TRAINER_ITERS],
+                      enable_save_eval_images=False, num_workers=8)
+        small = RasterPlan(max_instances=_next_bucket(TRAINER_SFM), k_max=1 << 12,
+                           chunk=CHUNK_T, tile_size=TILE_T, pack_bf16=True)
+        t, launches, wall = trainer_run(run_kw, root / "capture", root / "out", dev, counted,
+                                        plan=small)
+        pin = trainer_summary(t, launches, wall)
+        steps, evals = t.steps_dispatched, t.eval_renders
+        require(all(launches[k] == steps + evals for k in ("expand_emission", "blend_forward"))
+                and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
+                and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
+                                                    "segred_prefix")),
+                f"K1-K4 must launch once a step (K1, K2 also once an eval render): "
+                f"{launches}, {steps} steps, {evals} eval renders")
+        require(len(t._loss_hist) == TRAINER_ITERS and steps >= TRAINER_ITERS, pin)
+        require(all(math.isfinite(v) for v in t._loss_hist), "non-finite trainer loss")
+        require(pin["loss_last8"] < pin["loss_first8"], ("the loss did not fall", pin))
+        require(t.plan_history and t.n_redo >= 1, ("no replan or redo", pin))
+        require(t.plan.pack_bf16, "the plan lost its bf16 pack on a replan")
+        psnrs = [e["psnr"] for e in pin["evals"]]
+        require(len(psnrs) == 2 and psnrs[-1] > psnrs[0], ("eval PSNR did not rise", psnrs))
+        require(t.opt.sh_degree_interval * 3 <= TRAINER_ITERS, "SH degree 3 not reached")
+        back = load_splat_ply(root / "out" / "splat_final.ply")
+        require(back["means"].shape[0] == pin["n_alive"] and back["shN"].shape[1] == 15,
+                ("splat_final.ply", back["means"].shape, pin["n_alive"]))
+        require((root / "out" / "metrics.csv").read_text().count("\n") == 3, "metrics.csv")
+        pin.update(trainer_step_probe(t))
+        phase("trainer-pinhole", **{k: pin[k] for k in (
+            "iterations", "it_per_s", "plan_history", "n_redo", "launches", "evals",
+            "step_ms_alone", "step_ms_beside_loader")})
+        del t, back
+        torch.cuda.empty_cache()
+
+        # -- GUT: the OPENCV declaration of the same capture
+        gut_kw = dict(run_kw, iterations=TRAINER_GUT_ITERS, gut=True, enable_eval=False,
+                      start_refine=1_000, save_steps=[])
+        t, launches, wall = trainer_run(gut_kw, root / "capture" / "opencv", root / "gut", dev,
+                                        counted)
+        gut = trainer_summary(t, launches, wall)
+        steps = t.steps_dispatched
+        require(all(launches[k] == steps for k in ("expand_emission", "gut_blend_forward",
+                                                    "gut_blend_backward", "segsum_emission"))
+                and all(launches[k] == 0 for k in ("blend_forward", "blend_backward",
+                                                    "segred_prefix")),
+                f"K1, K5, K6 and K4 must launch once a GUT step: {launches}, {steps} steps")
+        require(len(t._loss_hist) == TRAINER_GUT_ITERS
+                and all(math.isfinite(v) for v in t._loss_hist), "GUT trainer losses")
+        require(gut["loss_last8"] < gut["loss_first8"], ("the GUT loss did not fall", gut))
+        gut.update(trainer_step_probe(t))
+        phase("trainer-gut", **{k: gut[k] for k in ("iterations", "it_per_s", "launches",
+                                                     "plan_history", "step_ms_alone",
+                                                     "step_ms_beside_loader")})
+        del t
+        torch.cuda.empty_cache()
+
+        # -- the CLI, as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_splat_torch", "-d", str(root / "capture"), "-o",
+             str(root / "cli"), "--headless", "-i", str(TRAINER_CLI_ITERS)],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the training CLI failed:\n{proc.stderr[-3000:]}")
+        for name in ("splat_final.ply", "training_params.json", "cli.ls"):
+            require((root / "cli" / name).exists(), f"the CLI did not write {name}")
+        cli = dict(seconds=cli_s, iterations=TRAINER_CLI_ITERS, returncode=proc.returncode)
+        phase("trainer-cli", **cli)
+    return dict(capture=capture, pinhole=pin, gut=gut, cli=cli)
+
+
 def segred_random_phases(dev) -> dict:
     """K4 and K7 on random runs: 200,000 Gaussians, a quarter of them with empty runs, one
     run of 300,000 slots (it spans 293 of K7's 1024-slot blocks), 1000 tail slots that
@@ -1782,10 +2084,16 @@ def main() -> int:
     gut.update(k5_random_max_abs_err=k5_random_err, k6_random_rel_err=k6_random_err,
                segred_random=segred_random)
 
+    # ======================= the trainer: capture -> Trainer -> CLI =======================
+    torch.cuda.empty_cache()
+    trainer = trainer_phases(params, focal, dev, counted)
+    trainer.update(device=kind, nvidia_smi=smi)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"gut": gut}), flush=True)
+    print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

@@ -319,3 +319,85 @@ def test_segprefix_kernel_on_short_and_ragged_axes_on_card(n_rows, m):
     gflat, cols = _tile_sorted_on_card(rows, gen)
     for got in (segred_prefix(rows, rank), segred_prefix(gflat, rank, cols)):
         _check_prefix_on_card(got, rows, rank)
+
+
+@pytest.mark.cuda
+def test_trainer_runs_through_the_kernels_on_card(tmp_path):
+    """A 10-step Trainer run (two dispatch chunks and an eval) on a 6-view 96x64 capture
+    the port renders: K1-K4 launch once a step, K1 and K2 also once an eval render, no
+    GUT kernel; finite losses, one a step; the PLY holds the alive Gaussians."""
+    _require_cuda()
+    from chip_smoke import write_colmap_model
+    from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
+                                             TrainingParameters)
+    from tpu_splat_torch.io.image import save_image
+    from tpu_splat_torch.io.ply import load_splat_ply
+    from tpu_splat_torch.ops.cuda import blend, raster
+    from tpu_splat_torch.ops.rasterize import rasterize
+    from tpu_splat_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n, w, h, f = 2000, 96, 64, 80.0
+    z = rng.uniform(2, 6, n).astype(np.float32)
+    means = np.stack([rng.uniform(-0.5, 0.5, n) * z, rng.uniform(-0.35, 0.35, n) * z, z],
+                     1).astype(np.float32)
+    params = dict(means=means, sh0=rng.normal(0, 0.5, (n, 1, 3)),
+                  shN=np.zeros((n, 15, 3)), scaling_raw=np.log(np.full((n, 3), 0.03)),
+                  rotation_raw=np.tile([1.0, 0, 0, 0], (n, 1)),
+                  opacity_raw=rng.normal(0, 1, (n, 1)))
+    sp = splat_from_numpy(params, np.ones(n, bool), 3, dev)
+    (tmp_path / "images").mkdir()
+    views = []
+    for i in range(6):
+        t = np.array([0.05 * i, 0.0, 0.0], np.float32)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, 3] = t
+        with torch.no_grad():
+            img = rasterize(sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0,
+                            sp.shN, sp.alive, w2c, -t, f, f, w / 2, h / 2, 3, None, width=w,
+                            height=h, max_instances=1 << 16, k_max=2048, device=dev).image
+        save_image(str(tmp_path / "images" / f"v{i}.png"), img.cpu().numpy())
+        views.append(dict(R=np.eye(3), T=t, fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h,
+                          name=f"v{i}.png"))
+    write_colmap_model(tmp_path / "sparse" / "0", views, means[::4],
+                       np.full((n // 4, 3), 128, np.uint8))
+    tp = TrainingParameters(
+        dataset=DatasetConfig(data_path=str(tmp_path), output_path=str(tmp_path / "out"),
+                              test_every=6),
+        optimization=OptimizationParameters(iterations=10, max_cap=4096, enable_eval=True,
+                                            eval_steps=[10], save_steps=[], num_workers=2,
+                                            enable_save_eval_images=False))
+    trainer = Trainer(tp)
+    counted = (raster.expand_emission, blend.blend_forward, blend.blend_backward,
+               raster.segsum_emission)
+    for fn in counted + (gut_blend_forward, segred_prefix):
+        fn.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    steps, evals = trainer.steps_dispatched, trainer.eval_renders
+    assert steps >= 10 and evals == 1
+    assert [fn.launches for fn in counted] == [steps + evals] * 2 + [steps] * 2
+    assert gut_blend_forward.launches == 0 and segred_prefix.launches == 0
+    assert len(trainer._loss_hist) == 10 and np.isfinite(trainer._loss_hist).all()
+    back = load_splat_ply(tmp_path / "out" / "splat_final.ply")
+    assert back["means"].shape[0] == int(trainer.state.splat.n_alive())
+    assert trainer.evaluator.results[-1].num_images == 1
+
+
+@pytest.mark.cuda
+def test_jpeg_decodes_through_nvjpeg_on_card(tmp_path):
+    """nvJPEG against libjpeg's decode of a 4:4:4 fixture (IDCT and colour conversion
+    round differently): within 3/255 per channel; the loader's output shape and range."""
+    _require_cuda()
+    from tpu_splat_torch.io.image import decode_file, load_image
+    from torch_fixtures import jpeg_fixture
+
+    data, want = jpeg_fixture()
+    p = tmp_path / "fixture.jpg"
+    p.write_bytes(data)
+    got = decode_file(p)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(np.int16) - want).max() <= 3
+    img = load_image(p, 2)
+    assert img.shape == (3, 12, 16) and img.dtype == np.float32

@@ -161,7 +161,12 @@ def test_port_imports_no_jax():
         "import tpu_splat_torch.ops.cameras, tpu_splat_torch.ops.gut\n"
         "import tpu_splat_torch.ops.cuda.gut_kernels, tpu_splat_torch.ops.cuda.build\n"
         "from tpu_splat_torch.training import losses, optim, strategy_mcmc, train_step\n"
+        "from tpu_splat_torch.training import dataset, metrics, trainer\n"
+        "from tpu_splat_torch.io import colmap, image, loader, nvjpeg, ply, transforms\n"
+        "from tpu_splat_torch.core import camera, config, project\n"
+        "from tpu_splat_torch.utils import async_io, events\n"
         "import chip_smoke, profile_render, ab_blend_kernels, ab_gut_kernels\n"
+        "import ab_segred_kernels\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_splat'))\n"
         "assert not bad, bad\n"
     )

@@ -1,0 +1,313 @@
+"""The port's Trainer and training CLI, on the CPU.
+
+Against the JAX package (its functions, never its `Trainer.train`, whose runs are the
+tier-1 suite's long pole): `_next_pow2`, `_next_bucket`, `_sine_background` and
+`_inv_weight_piecewise` exactly; the plan-growth decisions of `Trainer._check_pending`
+(called unbound) over a table of (plan, total, max tile) cases, `pack_bf16` surviving and
+the 512-chunk clamp included; `_scan_chunk`'s chunk boundaries over whole schedules; and
+`cli.params_from_args` on the same argv.
+
+The port on its own: a 60-iteration run at the size of `tests/test_io_and_trainer.py::
+test_trainer_end_to_end` through `cli.main([... "--headless", "--device", "cpu"])` (finite,
+falling loss, PSNR > 10 on the one val image, PLY with n == n_alive, the CLI's files); a
+forced overflow that rolls back the state and the generator, grows the plan and keeps
+`pack_bf16`, with one loss per iteration; a short `--gut` run on an OPENCV capture; that a
+distorted capture without `--gut`, each flag not ported yet, and training with no card and
+no `--device cpu` raise.
+"""
+
+import csv
+import dataclasses
+import json
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_splat import cli as jax_cli
+from tpu_splat.core.config import OptimizationParameters as JaxOptimizationParameters
+from tpu_splat.training import train_step as jax_ts
+from tpu_splat.training import trainer as jax_trainer
+from tpu_splat_torch import cli
+from tpu_splat_torch.core.config import DatasetConfig, OptimizationParameters, TrainingParameters
+from tpu_splat_torch.io import colmap
+from tpu_splat_torch.io.ply import load_splat_ply, save_splat_ply
+from tpu_splat_torch.training import trainer
+from tpu_splat_torch.training.train_step import RasterPlan
+
+from synth_data import make_raytraced_colmap, make_synthetic_colmap, write_colmap_binary
+
+
+def test_buckets_and_schedules_match_jax():
+    xs = list(range(0, 3000)) + [int(v) for v in np.geomspace(3000, 5e7, 400)]
+    for x in xs:
+        assert trainer._next_pow2(x) == jax_trainer._next_pow2(x), x
+        assert trainer._next_bucket(x) == jax_trainer._next_bucket(x), x
+    for total in (1, 60, 30_000):
+        for step in range(0, 2 * total + 2, max(1, total // 97)):
+            assert trainer._inv_weight_piecewise(step, total) == \
+                jax_trainer._inv_weight_piecewise(step, total)
+    got_rng, want_rng = np.random.default_rng(1234), np.random.default_rng(1234)
+    for step in range(300):
+        got = trainer._sine_background(step, got_rng)
+        want = jax_trainer._sine_background(step, want_rng)
+        assert got.dtype == want.dtype and np.array_equal(got, want), step
+
+
+PLAN_CASES = [  # (max_instances, k_max, chunk, pack_bf16, total, max_tile)
+    (1 << 16, 4096, 256, True, 1000, 100),  # well inside: no change
+    (1 << 16, 4096, 256, True, 60_000, 100),  # > 0.85 budget: grow, no redo
+    (1 << 16, 4096, 256, True, 70_000, 100),  # overflow: grow + redo
+    (1 << 16, 4096, 256, True, 1000, 3600),  # > 0.85 k_max: double
+    (1 << 16, 4096, 256, True, 1000, 5000),  # tile overflow: grow + redo
+    (1 << 16, 65536, 128, False, 1000, 65000),  # at the 512-chunk cap (128): no doubling
+    (1 << 16, 4096, 128, True, 1000, 70_000),  # beyond 512 * 128: clamp, no redo
+    (1 << 16, 4096, 256, False, 99_000, 9000),  # both overflow
+    (1 << 20, 1 << 17, 256, True, 10, 120_000),  # cap 2^17: no doubling past it
+    (3 << 17, 4096, 256, True, 1 << 22, 4000),  # big jump
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_growth_matches_jax(case):
+    max_inst, k_max, chunk, bf16, total, max_tile = case
+    kw = dict(max_instances=max_inst, k_max=k_max, chunk=chunk, tile_size=32, pack_bf16=bf16)
+    jplan, plan = jax_ts.RasterPlan(**kw), RasterPlan(**kw)
+    stats = types.SimpleNamespace(total_instances=total, max_tile_count=max_tile,
+                                  n_shard_visible=0)
+    jself = types.SimpleNamespace(plan=jplan, mesh=None)
+    pself = types.SimpleNamespace(plan=plan)
+    want = jax_trainer.Trainer._check_pending(
+        jself, types.SimpleNamespace(stats=stats, plan=jplan, iteration=7))
+    got = trainer.Trainer._check_pending(
+        pself, types.SimpleNamespace(stats=stats, plan=plan, iteration=7))
+    assert got == want
+    want_fields = dataclasses.asdict(jself.plan)
+    assert want_fields.pop("gather_budget") is None
+    assert dataclasses.asdict(pself.plan) == want_fields
+    assert pself.plan.pack_bf16 == bf16
+
+
+@pytest.mark.parametrize("scan_steps,progress_every,eval_on", [(8, 100, True), (8, 7, False),
+                                                               (1, 100, True), (5, 20, True)])
+def test_scan_chunks_match_jax(scan_steps, progress_every, eval_on):
+    fields = dict(iterations=300, refine_every=25, start_refine=30, stop_refine=250,
+                  eval_steps=[50, 123, 300], save_steps=[77, 300], enable_eval=eval_on,
+                  scan_steps=scan_steps)
+    jopt = JaxOptimizationParameters(**fields)
+    opt = OptimizationParameters(**fields)
+    jself = types.SimpleNamespace(opt=jopt, checkpoint_every=0, _timelapse_due=lambda j: False)
+    jself._needs_topology_hook = lambda j: jax_trainer.Trainer._needs_topology_hook(jself, j)
+    pself = types.SimpleNamespace(opt=opt)
+    pself._needs_topology_hook = lambda j: trainer.Trainer._needs_topology_hook(pself, j)
+    it, chunks = 1, []
+    while it <= 300:
+        k = trainer.Trainer._scan_chunk(pself, it, 300, progress_every)
+        assert k == jax_trainer.Trainer._scan_chunk(jself, it, 300, progress_every), it
+        chunks.append(k)
+        it += k
+    assert sum(chunks) == 300 and max(chunks) <= scan_steps
+
+
+ARGVS = [
+    ["-d", "data", "-o", "out"],
+    ["-d", "data", "-o", "out", "-i", "500", "--eval", "--test-every", "4", "--gut",
+     "--sh-degree", "2", "--max-cap", "5000", "--resize_factor", "2", "--max-width", "800",
+     "--images", "imgs", "--scan-steps", "4", "--bg-modulation", "--random",
+     "--init-num-pts", "77", "--steps-scaler", "0.5", "--proj_path", "p.ls"],
+    ["-d", "data", "-o", "out", "--config", "parameter/mcmc_optimization_params.json",
+     "-i", "42", "--headless", "--skip-intermediate", "--init-ply", "x.ply"],
+    ["-d", "data", "--config", "parameter/default_optimization_params.json", "--strategy",
+     "default", "--timelapse-images", "a.png", "b.png", "--sog", "--batch-size", "2"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS)
+def test_params_from_args_matches_jax(argv):
+    got = cli.params_from_args(cli.build_parser().parse_args(argv))
+    want = jax_cli.params_from_args(jax_cli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(got.dataset) == dataclasses.asdict(want.dataset)
+    assert got.optimization.to_json() == want.optimization.to_json()
+    assert (got.ply_path, got.init_ply) == (want.ply_path, want.init_ply)
+
+
+# ------------------------------------------------------------ the port's own runs
+
+
+@pytest.fixture(scope="module")
+def colmap_dir(tmp_path_factory):
+    base = tmp_path_factory.mktemp("colmap_scene")
+    make_synthetic_colmap(base, n_gauss=120, n_cams=6, size=48)
+    return base
+
+
+def _keep_trainer(monkeypatch) -> list:
+    """Record the Trainer that cli.main builds."""
+    kept, train = [], trainer.Trainer.train
+
+    def recording_train(self, *a, **kw):
+        kept.append(self)
+        return train(self, *a, **kw)
+
+    monkeypatch.setattr(trainer.Trainer, "train", recording_train)
+    return kept
+
+
+def test_cli_trains_end_to_end_on_cpu(colmap_dir, tmp_path, monkeypatch):
+    cfg = tmp_path / "opt.json"
+    cfg.write_text(json.dumps(dict(
+        max_cap=256, refine_every=20, start_refine=9, stop_refine=55, eval_steps=[60],
+        save_steps=[60], num_workers=2, enable_save_eval_images=False,
+        sh_degree_interval=20)))
+    kept = _keep_trainer(monkeypatch)
+    out = tmp_path / "out"
+    rc = cli.main(["-d", str(colmap_dir), "-o", str(out), "--config", str(cfg), "-i", "60",
+                   "--eval", "--test-every", "6", "--headless", "--device", "cpu"])
+    assert rc == 0
+    (t,) = kept
+    losses = t._loss_hist
+    assert len(losses) == 60 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+    assert t.state.iteration == 61
+    back = load_splat_ply(out / "splat_final.ply")
+    assert back["means"].shape[0] == int(t.state.splat.n_alive())
+    res = t.evaluator.results[-1]
+    assert res.num_images == 1 and res.psnr > 10, res
+    with open(out / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["iteration"] for r in rows] == ["60"] and rows[0]["lpips"] == ""
+    assert json.loads((out / "training_params.json").read_text())["optimization"][
+        "iterations"] == 60
+    project = json.loads((out / "out.ls").read_text())
+    assert [p["name"] for p in project["plys"]] == ["final"]
+    assert not (out / "out.ls.lock").exists()
+
+
+def _small_params(base, out, test_every=8, **opt):
+    fields = dict(iterations=12, max_cap=256, refine_every=100, start_refine=500,
+                  eval_steps=[], save_steps=[], num_workers=1, scan_steps=4)
+    fields.update(opt)
+    return TrainingParameters(
+        dataset=DatasetConfig(data_path=str(base), output_path=str(out), test_every=test_every),
+        optimization=OptimizationParameters(**fields))
+
+
+def test_overflow_rolls_back_state_and_generator(colmap_dir, tmp_path):
+    t = trainer.Trainer(_small_params(colmap_dir, tmp_path / "o"), device="cpu")
+    t.plan = RasterPlan(max_instances=64, k_max=8, chunk=256, tile_size=32, pack_bf16=True)
+    s0 = t.state
+    snap = {k: v.clone() for k, v in s0.splat.params().items()}
+    g0 = s0.rng.get_state().clone()
+    samples = [t.train_dataset.get(i) for i in (0, 1)]
+    first = t._dispatch_step(samples[0], 1)
+    second = t._dispatch_step(samples[1], 2)
+    assert t.state.iteration == 3 and not torch.equal(s0.rng.get_state(), g0)
+    assert t._check_or_roll_back(first)  # overflow: redo from iteration 1
+    assert t.state is s0 and torch.equal(t.state.rng.get_state(), g0)
+    assert t.plan.pack_bf16 and t.plan.max_instances > 64 and t.plan.k_max > 8
+    assert t.plan_history == [(1, t.plan.max_instances, t.plan.k_max, True)]
+    for k, v in s0.splat.params().items():  # the step left its input state untouched
+        assert torch.equal(v, snap[k]), k
+    # the redo is a function of (state, sample): the same draws give the same state
+    redo = t._dispatch_step(samples[0], 1)
+    assert not t._check_or_roll_back(redo)
+    after = t.state
+    t.state = s0
+    t.state.rng.set_state(g0)
+    t._dispatch_step(samples[0], 1)
+    for k, v in t.state.splat.params().items():
+        assert torch.equal(v, after.splat.params()[k]), k
+    del second
+
+    # a whole run from the tiny plan: redone, one loss per iteration
+    t = trainer.Trainer(_small_params(colmap_dir, tmp_path / "o2"), device="cpu")
+    t.plan = RasterPlan(max_instances=64, k_max=8, chunk=256, tile_size=32, pack_bf16=True)
+    t.train(progress_every=100)
+    assert t.n_redo >= 1 and t.plan_history[0][3] and t.plan.pack_bf16
+    assert len(t._loss_hist) == 12 and np.isfinite(t._loss_hist).all()
+    assert t.steps_dispatched > 12
+
+
+@pytest.fixture(scope="module")
+def opencv_dir(tmp_path_factory):
+    base = tmp_path_factory.mktemp("opencv") / "rt"
+    cams = make_raytraced_colmap(base, n_cams=4, size=32, seed=1, n_sfm=160)
+    pts, cols = colmap._read_points3d_bin(base / "sparse" / "0" / "points3D.bin")
+    write_colmap_binary(base, cams, pts, cols / 255.0, camera_model="OPENCV",
+                        distortion=(0.05, 0.0, 0.0, 0.0))
+    return base
+
+
+def test_gut_run_on_opencv_capture(opencv_dir, tmp_path):
+    t = trainer.Trainer(_small_params(opencv_dir, tmp_path / "g", iterations=6, gut=True,
+                                      enable_eval=True, eval_steps=[6], test_every=4),
+                        device="cpu")
+    assert t.step_cfg.gut and t.val_cams
+    t.train(progress_every=100)
+    assert len(t._loss_hist) == 6 and np.isfinite(t._loss_hist).all()
+    cfg, dist = t._gut_cfg_for(t.train_cams[0])
+    assert cfg.cam_params.model == "pinhole" and float(dist[0]) == pytest.approx(0.05)
+    assert t.evaluator.results[-1].num_images == 1
+    assert (tmp_path / "g" / "splat_final.ply").exists()
+
+
+def test_heterogeneous_chunk_falls_back_to_single_steps():
+    """Mixed image sizes in a chunk: `_dispatch_scan` declines (None) before it touches the
+    state, and the caller dispatches step by step, as in the JAX Trainer."""
+    cams = [types.SimpleNamespace(image_width=w, image_height=32) for w in (48, 48, 40)]
+    samples = [types.SimpleNamespace(camera=c) for c in cams]
+    pself = types.SimpleNamespace(step_cfg=trainer.StepConfig())
+    assert trainer.Trainer._dispatch_scan(pself, samples, 1) is None
+    jself = types.SimpleNamespace(step_cfg=jax_ts.StepConfig())
+    assert jax_trainer.Trainer._dispatch_scan(jself, samples, 1) is None
+
+
+def test_init_from_ply_and_random(colmap_dir, tmp_path):
+    """--init-ply puts the PLY's Gaussians in the first slots of a pow2 pool; --random
+    draws init_num_pts points (the JAX package's numpy draws, seed 42)."""
+    rng = np.random.default_rng(9)
+    n = 300
+    raw = dict(means=rng.normal(0, 1, (n, 3)), sh0=rng.normal(0, 1, (n, 1, 3)),
+               shN=rng.normal(0, 0.1, (n, 15, 3)), scaling_raw=rng.normal(-3, 0.5, (n, 3)),
+               rotation_raw=rng.normal(0, 1, (n, 4)), opacity_raw=rng.normal(0, 1, (n, 1)))
+    raw["rotation_raw"] /= np.linalg.norm(raw["rotation_raw"], axis=1, keepdims=True)
+    save_splat_ply(tmp_path / "init.ply", **raw)
+    params = _small_params(colmap_dir, tmp_path / "o")
+    params.init_ply = str(tmp_path / "init.ply")
+    t = trainer.Trainer(params, device="cpu")
+    sp = t.state.splat
+    assert sp.capacity == 512 and int(sp.n_alive()) == n and bool(sp.alive[:n].all())
+    for k, v in raw.items():
+        np.testing.assert_allclose(getattr(sp, k)[:n].numpy(), v, rtol=1e-6, atol=1e-7)
+    t = trainer.Trainer(_small_params(colmap_dir, tmp_path / "r", random=True,
+                                      init_num_pts=77), device="cpu")
+    assert int(t.state.splat.n_alive()) == 77
+
+
+def test_distorted_capture_needs_gut(opencv_dir, tmp_path):
+    with pytest.raises(ValueError, match="--gut"):
+        trainer.Trainer(_small_params(opencv_dir, tmp_path / "x"), device="cpu")
+
+
+@pytest.mark.parametrize("flags", [["--resume", "c.npz"], ["--checkpoint-every", "5"],
+                                   ["--sog"], ["--timelapse-images", "a.png"],
+                                   ["--batch-size", "2"], ["--strategy", "default"],
+                                   ["--bilateral-grid"], ["--pose-opt", "direct"],
+                                   ["--enable-sparsity"], []])
+def test_unported_flags_raise(colmap_dir, tmp_path, flags):
+    argv = ["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--device", "cpu"] + flags
+    if flags:
+        argv.append("--headless")
+    match = "viewer" if not flags else "not ported yet"
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(argv)
+
+
+def test_no_card_and_no_device_raises(colmap_dir, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--headless"])
+    assert not (tmp_path / "o").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.Trainer(_small_params(colmap_dir, tmp_path / "o"))

@@ -1,49 +1,209 @@
-"""Command-line interface of the port: the `--view` render mode of `tpu_splat.cli`.
+"""Command-line interface of the port (port of `tpu_splat/cli.py`): training and `--view`.
 
+    python -m tpu_splat_torch -d DATA -o OUT --headless [--eval] [--gut] [--device cpu]
     python -m tpu_splat_torch --view model.ply -o renders [--device cpu]
 
-renders an orbit turntable of a Gaussian PLY to PNGs on the CUDA card (or on the CPU
-when asked). Training mode and the crop-box flags are not ported yet.
+trains a COLMAP or Blender capture (`run_headless` -> `Trainer.train`), or renders an
+orbit turntable of a Gaussian PLY to PNGs, on the CUDA card or, when asked, on the CPU.
+Config precedence is the JAX CLI's: struct defaults <- `--config` JSON <- CLI flags; the
+resolved parameters are saved to the output directory.
+
+Flags whose code is not ported yet stay in the parser and raise NotImplementedError
+(`training/trainer.py::check_ported`, and here `--resume`/`--checkpoint-every`); so does
+training without `--headless`, which attaches the live viewer in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from pathlib import Path
+
+from .core.config import DatasetConfig, OptimizationParameters, TrainingParameters
+from .utils.log import configure as configure_logging, get_logger
+
+log = get_logger(__name__)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu_splat_torch",
-        description="3D Gaussian Splatting renderer (PyTorch / CUDA port of tpu_splat)",
+        description="3D Gaussian Splatting trainer/renderer (PyTorch/CUDA port of tpu_splat)",
     )
+    # modes
     p.add_argument("-v", "--view", metavar="PLY", help="render an orbit of a model file")
+    p.add_argument("-d", "--data-path", help="path to training data (COLMAP or transforms.json)")
     p.add_argument("-o", "--output-path", help="output directory")
+    p.add_argument("--proj_path", help="project file path (.ls)")
+    p.add_argument("--config", help="optimization parameters JSON")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs on the CPU)")
+    # core schedule
+    p.add_argument("-i", "--iter", type=int, dest="iterations")
+    p.add_argument("--sh-degree", type=int, dest="sh_degree")
+    p.add_argument("--sh-degree-interval", type=int, dest="sh_degree_interval")
+    p.add_argument("--max-cap", type=int, dest="max_cap")
+    p.add_argument("--min-opacity", type=float, dest="min_opacity")
+    p.add_argument("--num-workers", type=int, dest="num_workers")
+    p.add_argument("--batch-size", type=int, dest="batch_size",
+                   help="cameras per optimizer step (not ported yet: > 1 raises)")
+    p.add_argument("--mesh-data", type=int, dest="mesh_data")
+    p.add_argument("--mesh-gauss", type=int, dest="mesh_gauss")
+    p.add_argument("--scan-steps", type=int, dest="scan_steps",
+                   help="steps folded into one dispatch between host hooks (1 = off)")
+    p.add_argument("--steps-scaler", type=float, dest="steps_scaler")
+    p.add_argument("--strategy", choices=["mcmc", "default"])
+    # features
+    p.add_argument("--headless", action="store_true", default=None)
+    p.add_argument("--eval", action="store_true", default=None, dest="enable_eval")
+    p.add_argument("--gut", action="store_true", default=None)
+    p.add_argument("--bilateral-grid", action="store_true", default=None,
+                   dest="use_bilateral_grid")
+    p.add_argument("--pose-opt", choices=["none", "direct", "mlp"], dest="pose_optimization")
+    p.add_argument("--bg-modulation", action="store_true", default=None, dest="bg_modulation")
+    p.add_argument("--save-eval-images", action="store_true", default=None,
+                   dest="enable_save_eval_images")
+    p.add_argument("--skip-intermediate", action="store_true", default=None,
+                   dest="skip_intermediate_saving")
+    p.add_argument("--render-mode", choices=["RGB", "D", "ED", "RGB_D", "RGB_ED"],
+                   dest="render_mode")
+    # init
+    p.add_argument("--init-ply")
+    p.add_argument("--random", action="store_true", default=None)
+    p.add_argument("--init-num-pts", type=int, dest="init_num_pts")
+    p.add_argument("--init-extent", type=float, dest="init_extent")
+    # sparsity
+    p.add_argument("--enable-sparsity", action="store_true", default=None,
+                   dest="enable_sparsity")
+    p.add_argument("--sparsify-steps", type=int, dest="sparsify_steps")
+    p.add_argument("--init-rho", type=float, dest="init_rho")
+    p.add_argument("--prune-ratio", type=float, dest="prune_ratio")
+    # export
+    p.add_argument("--sog", action="store_true", default=None, dest="save_sog")
+    p.add_argument("--sog-iterations", type=int, dest="sog_iterations")
+    # dataset
+    p.add_argument("--images", help="images folder name")
+    p.add_argument("--resize_factor", type=int, dest="resize_factor")
+    p.add_argument("--max-width", type=int, dest="max_width")
+    p.add_argument("--test-every", type=int, dest="test_every")
+    p.add_argument("--timelapse-images", nargs="*", dest="timelapse_images")
+    p.add_argument("--timelapse-every", type=int, dest="timelapse_every")
+    p.add_argument("--rc", action="store_true", default=None)
+    # checkpointing (not ported yet)
+    p.add_argument("--resume", metavar="CKPT", help="resume training from a checkpoint")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a full training checkpoint every N iterations")
+    # logging
+    p.add_argument("--log-level", default="info",
+                   choices=["trace", "debug", "info", "warn", "error"])
+    p.add_argument("--log-file")
+    # view-mode options
     p.add_argument("--view-frames", type=int, default=60)
     p.add_argument("--view-width", type=int, default=1280)
     p.add_argument("--view-height", type=int, default=720)
-    p.add_argument("--render-mode", choices=["RGB", "D", "ED", "RGB_D", "RGB_ED"],
-                   default="RGB")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card; 'cpu' runs on the CPU)")
     return p
+
+
+def params_from_args(args: argparse.Namespace) -> TrainingParameters:
+    """defaults <- config JSON <- CLI flags, with conflict detection."""
+    if args.config:
+        opt = OptimizationParameters.from_file(args.config)
+    else:
+        opt = OptimizationParameters()
+
+    opt_fields = {f.name for f in dataclasses.fields(OptimizationParameters)}
+    overrides = {}
+    for key, val in vars(args).items():
+        if val is None or key not in opt_fields:
+            continue
+        overrides[key] = val
+    if args.config and overrides:
+        # conflict detection (argument_parser.cpp:479): explicit CLI values win, but warn
+        conflicting = [k for k in overrides if getattr(opt, k) != overrides[k]]
+        if conflicting:
+            log.warning("CLI flags override config file values: %s", ", ".join(conflicting))
+    opt = dataclasses.replace(opt, **overrides)
+
+    ds = DatasetConfig(
+        data_path=args.data_path or "",
+        output_path=args.output_path or "",
+        project_path=args.proj_path or "",
+    )
+    ds_fields = {f.name for f in dataclasses.fields(DatasetConfig)}
+    ds_overrides = {
+        k: v for k, v in vars(args).items()
+        if v is not None and k in ds_fields
+        and k not in ("data_path", "output_path", "project_path")
+    }
+    ds = dataclasses.replace(ds, **ds_overrides)
+
+    return TrainingParameters(dataset=ds, optimization=opt, init_ply=args.init_ply)
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.view:
+    configure_logging(args.log_level, args.log_file)
+
+    if args.view:
+        from .render import render_orbit
+
+        render_orbit(
+            args.view, Path(args.output_path or "renders"), n_frames=args.view_frames,
+            width=args.view_width, height=args.view_height,
+            render_mode=args.render_mode or "RGB", device=args.device,
+        )
+        return 0
+
+    if not args.data_path:
         build_parser().print_help()
-        print("\nOnly rendering is ported so far: pass --view MODEL.ply.", file=sys.stderr)
+        print("\nPass -d/-o to train or --view to render.", file=sys.stderr)
         return 1
 
-    from .render import render_orbit
+    return run_headless(args)
 
-    render_orbit(
-        args.view, Path(args.output_path or "renders"), n_frames=args.view_frames,
-        width=args.view_width, height=args.view_height, render_mode=args.render_mode,
-        device=args.device,
+
+def run_headless(args: argparse.Namespace) -> int:
+    """Mirrors run_headless_app (application.cpp:17-54): project -> setup -> train."""
+    from .core.project import create_new_project
+    from .device import resolve_device
+    from .training.trainer import Trainer, check_ported
+
+    params = params_from_args(args)
+    check_ported(params)
+    if args.resume or args.checkpoint_every:
+        raise NotImplementedError(
+            "checkpoints (--resume, --checkpoint-every) are not ported yet (ROADMAP.md "
+            "Queue 1 item 5)")
+    if not args.headless:
+        raise NotImplementedError(
+            "the live training viewer is not ported yet (ROADMAP.md Queue 1 item 8): "
+            "pass --headless")
+    device = resolve_device(args.device)  # no card and no --device cpu: raise before I/O
+
+    out_dir = Path(params.dataset.output_path or "output")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    params.save(out_dir / "training_params.json")
+
+    project = create_new_project(
+        params.dataset.data_path, str(out_dir),
+        project_path=params.dataset.project_path or None,
     )
+    if not project.acquire_lock():
+        log.error("project %s is locked by another process", project.path)
+        return 2
+    try:
+        project.params = params.optimization.to_json()
+        project.save()
+
+        trainer = Trainer(params, device=device)
+        trainer.project = project
+        trainer.train()
+        final = out_dir / "splat_final.ply"
+        if final.exists():
+            project.add_ply("final", final, iteration=trainer.opt.iterations)
+    finally:
+        project.release_lock()
     return 0
 
 

@@ -1,30 +1,75 @@
-"""Loader facade: the Gaussian-PLY branch of the JAX package's `io/loader.py::load`.
+"""Loader facade: format detection + dispatch (port of `tpu_splat/io/loader.py`).
 
-SOG models and the training inputs (COLMAP, Blender transforms, point-cloud PLYs) are
-not ported yet; they raise.
+Detects COLMAP / Blender-transforms / Gaussian-PLY / point-cloud-PLY and returns either a
+splat parameter dict (a model to view) or a LoadedScene (cameras + SfM points to train
+from). SOG models are not ported yet (ROADMAP.md Queue 1 item 8): they raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
 
-from . import ply
+import numpy as np
+
+from ..core.camera import Camera
+from . import colmap, ply, transforms
+
+
+@dataclass
+class LoadedScene:
+    cameras: list[Camera]
+    points: np.ndarray  # [N,3]
+    colors: np.ndarray  # [N,3] in [0,1]
+    scene_center: np.ndarray  # [3]
 
 
 @dataclass
 class LoadResult:
-    """A ready splat model: raw parameter arrays as written by `save_splat_ply`."""
+    """Either a ready splat model (PLY) or a trainable scene (COLMAP/Blender)."""
 
+    scene: Optional[LoadedScene] = None
     splat_params: Optional[dict] = None
     loader_used: str = ""
+    warnings: list[str] = field(default_factory=list)
 
 
-def load(path: str | Path) -> LoadResult:
+def load(path: str | Path, images_folder: str = "images", rc: bool = False) -> LoadResult:
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(str(path))
-    if path.is_file() and path.suffix.lower() == ".ply" and ply.is_gaussian_ply(path):
-        return LoadResult(splat_params=ply.load_splat_ply(path), loader_used="ply")
-    raise ValueError(f"{path} is not a Gaussian PLY (the only model format ported so far)")
+
+    if path.is_file() and path.suffix.lower() == ".ply":
+        if ply.is_gaussian_ply(path):
+            return LoadResult(splat_params=ply.load_splat_ply(path), loader_used="ply")
+        pts, cols = ply.load_pointcloud_ply(path)
+        scene = LoadedScene(cameras=[], points=pts, colors=cols,
+                            scene_center=pts.mean(axis=0).astype(np.float32))
+        return LoadResult(scene=scene, loader_used="ply_pointcloud")
+
+    if path.is_file() and path.suffix.lower() == ".sog" or (path / "meta.json").exists():
+        raise NotImplementedError(
+            f"{path}: SOG models are not ported yet (ROADMAP.md Queue 1 item 8)")
+
+    if colmap.is_colmap_dataset(path):
+        cameras, pts, cols, center = colmap.load_colmap(path, images_folder, rc)
+        return LoadResult(
+            scene=LoadedScene(cameras=cameras, points=pts, colors=cols, scene_center=center),
+            loader_used="colmap",
+        )
+
+    if transforms.is_transforms_dataset(path):
+        cameras, center = transforms.load_transforms(path)
+        # Blender datasets have no SfM points; the trainer falls back to random init
+        return LoadResult(
+            scene=LoadedScene(
+                cameras=cameras,
+                points=np.zeros((0, 3), np.float32),
+                colors=np.zeros((0, 3), np.float32),
+                scene_center=center,
+            ),
+            loader_used="transforms",
+        )
+
+    raise ValueError(f"Unrecognized dataset format at {path}")

@@ -138,3 +138,16 @@ def load_splat_ply(path: str | Path) -> dict[str, np.ndarray]:
     opacity = t["opacity"][:, None]
     return dict(means=means, sh0=sh0, shN=np.ascontiguousarray(shN),
                 scaling_raw=scaling, rotation_raw=rot, opacity_raw=opacity)
+
+
+def load_pointcloud_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
+    """Plain point-cloud PLY -> (points [N,3], colors[0,1] [N,3])."""
+    t = read_ply_vertex_table(path)
+    pts = np.stack([t["x"], t["y"], t["z"]], axis=1)
+    if "red" in t:
+        cols = np.stack([t["red"], t["green"], t["blue"]], axis=1)
+        if cols.max() > 1.5:
+            cols = cols / 255.0
+    else:
+        cols = np.full_like(pts, 0.5)
+    return pts, cols

@@ -28,6 +28,8 @@ def load_model(path: str | Path, device: str | torch.device | None = None) -> Sp
     """Load a Gaussian PLY into a SplatState on `device` (capacity = n, all alive)."""
     dev = resolve_device(device)
     raw = load(path).splat_params
+    if raw is None:
+        raise ValueError(f"{path} is not a Gaussian model file (a PLY with splat fields)")
     n = raw["means"].shape[0]
     k_rest = raw["shN"].shape[1]
     sh_degree = int(round(math.sqrt(k_rest + 1))) - 1 if k_rest else 0

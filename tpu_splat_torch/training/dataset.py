@@ -1,0 +1,124 @@
+"""Camera dataset + infinite shuffling prefetch loader (port of
+`tpu_splat/training/dataset.py`). The prefetch threads decode into numpy arrays and never
+touch a CUDA tensor; the trainer moves each sample to the card.
+
+Reference: src/training/dataset.hpp — TRAIN/VAL/ALL split by `test_every` modulo
+(dataset.hpp:40-49), lazy per-batch image loads on worker threads (:64-74),
+InfiniteRandomSampler (:116-135), torch DataLoader with num_workers prefetch (:247-259).
+Here: a thread-pool prefetcher decoding JPEGs ahead of the train loop; batch size 1
+(one camera per step, like the reference).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import numpy as np
+
+from ..core.camera import Camera
+from ..io.image import load_image
+
+
+@dataclass
+class CameraSample:
+    camera: Camera
+    image: np.ndarray  # [3,H,W] float32
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    index: int = 0  # position within this dataset's split (poseopt/bilateral id)
+
+
+def split_cameras(cameras: list[Camera], test_every: int, split: str) -> list[Camera]:
+    """TRAIN = idx % test_every != 0, VAL = idx % test_every == 0 (dataset.hpp:40-49)."""
+    if split == "all" or test_every <= 0:
+        return list(cameras)
+    if split == "train":
+        return [c for i, c in enumerate(cameras) if i % test_every != 0]
+    if split == "val":
+        return [c for i, c in enumerate(cameras) if i % test_every == 0]
+    raise ValueError(split)
+
+
+class CameraDataset:
+    def __init__(self, cameras: list[Camera], resize_factor: int = -1, max_width: int = 3840):
+        self.cameras = cameras
+        self.resize_factor = resize_factor
+        self.max_width = max_width
+
+    def __len__(self) -> int:
+        return len(self.cameras)
+
+    def get(self, idx: int) -> CameraSample:
+        cam = self.cameras[idx]
+        img = load_image(cam.image_path, self.resize_factor, self.max_width)
+        h, w = img.shape[1], img.shape[2]
+        cam.image_width, cam.image_height = w, h
+        fx, fy, cx, cy = cam.intrinsics_for_size(w, h)
+        return CameraSample(camera=cam, image=img, fx=fx, fy=fy, cx=cx, cy=cy, index=idx)
+
+
+class InfiniteDataLoader:
+    """Infinite random sampler + worker-thread prefetch
+    (dataset.hpp:116-135 + create_infinite_dataloader_from_dataset :247-259)."""
+
+    def __init__(
+        self,
+        dataset: CameraDataset,
+        num_workers: int = 4,
+        prefetch: int = 8,
+        seed: int = 0,
+    ):
+        self.dataset = dataset
+        self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        self._index_lock = threading.Lock()
+        self._rng = np.random.default_rng(seed)
+        self._perm: list[int] = []
+        self._stop = threading.Event()
+        self._workers = [
+            threading.Thread(target=self._worker, daemon=True)
+            for _ in range(max(1, num_workers))
+        ]
+        for w in self._workers:
+            w.start()
+
+    def _next_index(self) -> int:
+        with self._index_lock:
+            if not self._perm:
+                self._perm = list(self._rng.permutation(len(self.dataset)))
+            return int(self._perm.pop())
+
+    def _worker(self) -> None:
+        while not self._stop.is_set():
+            idx = self._next_index()
+            try:
+                sample = self.dataset.get(idx)
+            except Exception as e:  # surface loader errors to the consumer
+                sample = e
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(sample, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self) -> Iterator[CameraSample]:
+        return self
+
+    def __next__(self) -> CameraSample:
+        item = self._queue.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass

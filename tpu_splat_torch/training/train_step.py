@@ -12,7 +12,7 @@ tensors, without a sync) so the host can grow the plan and redo an overflowing s
 Supported here: `strategy="mcmc"`, the pinhole fast path or, with `gut=True`, the GUT
 camera path (`ops/gut.py::rasterize_gut`: distorted pinhole, fisheye, ortho, rolling
 shutter), no components. Pose optimization, the bilateral grid, ADMM sparsity and the ADC
-strategy are still to port (ROADMAP.md, Queue 1 items 8-9): asking for one raises
+strategy are still to port (ROADMAP.md, Queue 1 items 6-7): asking for one raises
 NotImplementedError, the step never trains something else instead.
 
 State: `TrainState` holds tensors on one device, the iteration and Adam's per-group step
@@ -124,10 +124,10 @@ class StepConfig:
 
 
 _UNSUPPORTED = (
-    ("strategy", "mcmc", "the ADC strategy (ROADMAP.md Queue 1 item 8)"),
-    ("use_bilateral_grid", False, "the bilateral grid (ROADMAP.md Queue 1 item 9)"),
-    ("pose_optimization", "none", "pose optimization (ROADMAP.md Queue 1 item 9)"),
-    ("enable_sparsity", False, "ADMM sparsity (ROADMAP.md Queue 1 item 9)"),
+    ("strategy", "mcmc", "the ADC strategy (ROADMAP.md Queue 1 item 6)"),
+    ("use_bilateral_grid", False, "the bilateral grid (ROADMAP.md Queue 1 item 7)"),
+    ("pose_optimization", "none", "pose optimization (ROADMAP.md Queue 1 item 7)"),
+    ("enable_sparsity", False, "ADMM sparsity (ROADMAP.md Queue 1 item 7)"),
 )
 
 

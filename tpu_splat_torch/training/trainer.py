@@ -1,0 +1,645 @@
+"""Trainer orchestration: dataset split, train loop, plan adaptation, eval/save hooks (port
+of `tpu_splat/training/trainer.py`, one device).
+
+The host loop keeps the JAX package's structure. Each step reports its instance counters
+as device tensors; the host checks them one step behind, so reading them does not stall
+the next dispatch, and it ROLLS BACK and re-runs any step whose budget overflowed. States
+are immutable (`train_step` leaves its input untouched), so rollback is keeping the old
+state. The port's random stream is a `torch.Generator` shared by every state, where the
+JAX key is part of the state: each pending step records the generator's state at its
+dispatch, and a rollback restores it, so a redo draws what the first try drew.
+
+Uninterrupted stretches between host hooks go to `train_step_many` in chunks of
+`scan_steps`; heterogeneous chunks (mixed image sizes or GUT camera configs) fall back to
+one dispatch a step, as in the JAX package.
+
+Schedule hooks, host-dispatched between steps: the MCMC refine (relocate + grow) on the
+strict (start, stop) window (mcmc.cpp:501-505). Still to port, and raising
+NotImplementedError when asked for (`check_ported`): the ADC strategy and the components
+(ROADMAP.md Queue 1 items 6-7), checkpoints (item 5), SOG export and the timelapse
+(item 8), batched multi-device steps (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.config import TrainingParameters
+from ..core.splat import SplatState, init_from_pointcloud, init_random
+from ..device import resolve_device
+from ..io.loader import LoadResult, load
+from ..io.ply import load_splat_ply, save_splat_ply
+from ..ops.cameras import CameraParams
+from ..ops.gut import rasterize_gut
+from ..ops.rasterize import rasterize
+from ..utils import events as ev
+from ..utils.async_io import writer
+from ..utils.log import get_logger
+from . import strategy_mcmc
+from .dataset import CameraDataset, InfiniteDataLoader, split_cameras
+from .metrics import MetricsEvaluator
+from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_sh_degree,
+                         init_train_state, refine_step, train_step, train_step_many)
+
+log = get_logger(__name__)
+
+# the split of `Trainer.train`'s wall time (seconds), in `Trainer.timings`
+TIMING_KEYS = ("data_wait", "dispatch", "pending_checks", "hooks", "eval", "save")
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(math.ceil(math.log2(max(x, 1)))), 0)
+
+
+def _next_bucket(x: int) -> int:
+    """Quarter-pow2 buckets (1, 1.25, 1.5, 1.75 x 2^k), 128-aligned: the instance
+    pipeline's cost scales with the BUDGET, so pow2 rounding wastes up to 2x."""
+    x = max(x, 1)
+    p2 = 1 << max(int(math.floor(math.log2(x))), 0)
+    for frac in (1.0, 1.25, 1.5, 1.75, 2.0):
+        cand = int(p2 * frac)
+        if cand >= x:
+            return ((cand + 127) // 128) * 128
+    return 2 * p2
+
+
+def _sine_background(step: int, jitter: np.random.Generator) -> np.ndarray:
+    """sine_background_for_step (trainer.cpp:497-537): phase-shifted RGB + jitter."""
+    two_pi = 2.0 * math.pi
+    periods = (37, 41, 43)
+    phases = [two_pi * ((step % p) / p) for p in periods]
+    rgb = np.array(
+        [
+            0.5 * (1.0 + math.sin(phases[0])),
+            0.5 * (1.0 + math.sin(phases[1] + two_pi / 3.0)),
+            0.5 * (1.0 + math.sin(phases[2] + 2.0 * two_pi / 3.0)),
+        ],
+        np.float32,
+    )
+    rgb = rgb + (jitter.random(3).astype(np.float32) - 0.5) * 0.06
+    return np.clip(rgb, 1e-4, 1.0 - 1e-4)
+
+
+def _inv_weight_piecewise(step: int, max_steps: int) -> float:
+    """Background-mix weight schedule (trainer.cpp:474-496)."""
+    phase = max(0.0, min(1.0, step / max(1, max_steps)))
+    if phase < 0.25:
+        return 1.0
+    if phase < 0.5:
+        return 1.0 + (0.5 - 1.0) * (phase - 0.25) / 0.25
+    return max(0.0, 0.5 + (0.0 - 0.5) * (phase - 0.5) / 0.25)
+
+
+def check_ported(params: TrainingParameters) -> None:
+    """Raise NotImplementedError for a setting whose code is not ported yet."""
+    opt, ds = params.optimization, params.dataset
+    for asked, what, item in (
+        (opt.strategy != "mcmc", "the ADC strategy (--strategy default)", 6),
+        (opt.use_bilateral_grid, "the bilateral grid", 7),
+        (opt.pose_optimization != "none", "pose optimization", 7),
+        (opt.enable_sparsity, "ADMM sparsity", 7),
+        (opt.save_sog, "SOG export", 8),
+        (bool(ds.timelapse_images), "the timelapse", 8),
+        (opt.batch_size > 1 or opt.mesh_data > 1 or opt.mesh_gauss > 1,
+         "batched multi-device steps (--batch-size, --mesh-*)", 9),
+    ):
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+@dataclass
+class PendingStep:
+    iteration: int
+    prev_state: TrainState
+    rng_state: torch.Tensor  # the generator's state before the step, restored on a redo
+    stats: StepStats  # device tensors, read one step later
+    plan: RasterPlan
+
+
+class Trainer:
+    def __init__(self, params: TrainingParameters, load_result: Optional[LoadResult] = None,
+                 device: str | torch.device | None = None):
+        check_ported(params)
+        self.device = resolve_device(device)
+        self.params = params
+        opt = params.optimization.apply_steps_scaler()
+        self.opt = opt
+        self.step_cfg = StepConfig.from_params(opt)
+
+        if load_result is None:
+            ev.emit(ev.DatasetLoadStarted(path=params.dataset.data_path))
+            load_result = load(params.dataset.data_path, params.dataset.images, opt.rc)
+            if load_result.scene is not None:
+                ev.emit(ev.DatasetLoadCompleted(
+                    path=params.dataset.data_path,
+                    n_cameras=len(load_result.scene.cameras),
+                ))
+                ev.emit(ev.SceneLoaded(
+                    path=params.dataset.data_path,
+                    n_cameras=len(load_result.scene.cameras),
+                    n_points=int(load_result.scene.points.shape[0]),
+                ))
+        if load_result.scene is None:
+            raise ValueError(
+                "Training requires a camera dataset (COLMAP/Blender), got a model file")
+        scene = load_result.scene
+
+        split = "train" if opt.enable_eval else "all"
+        self.train_cams = split_cameras(scene.cameras, params.dataset.test_every, split)
+        self.val_cams = (
+            split_cameras(scene.cameras, params.dataset.test_every, "val")
+            if opt.enable_eval
+            else []
+        )
+        self.train_dataset = CameraDataset(
+            self.train_cams, params.dataset.resize_factor, params.dataset.max_width
+        )
+        self.val_dataset = CameraDataset(
+            self.val_cams, params.dataset.resize_factor, params.dataset.max_width
+        )
+
+        # distorted / fisheye cameras require the GUT path (trainer.cpp:586-597)
+        needs_gut = any(c.requires_gut() for c in self.train_cams)
+        if needs_gut and not opt.gut:
+            raise ValueError(
+                "dataset has distorted/fisheye cameras: pass --gut (trainer.cpp:586-597)"
+            )
+        if opt.gut:
+            # the camera MODEL/shutter select the code path; the distortion coefficients
+            # are a per-sample device tensor, so heterogeneous rigs render each view with
+            # its own coefficients (include/core/camera.hpp:16-125)
+            self.step_cfg = dataclasses.replace(self.step_cfg, gut=True)
+            self._gut_cfg_cache: dict[tuple, tuple] = {}
+
+        # model init (training_setup.cpp:50-117): SfM points, --init-ply, or random
+        dev = self.device
+        capacity = _next_pow2(max(opt.max_cap, 1))
+        if params.init_ply:
+            raw = load_splat_ply(params.init_ply)
+            n = raw["means"].shape[0]
+            capacity = max(capacity, _next_pow2(n))
+            splat = self._state_from_raw(raw, scene.scene_center, capacity, opt.sh_degree, dev)
+        elif opt.random or scene.points.shape[0] == 0:
+            rng = np.random.default_rng(42)
+            splat = init_random(
+                rng, opt.init_num_pts, opt.init_extent, capacity,
+                scene.scene_center, opt.sh_degree, opt.init_opacity, opt.init_scaling,
+                device=dev,
+            )
+        else:
+            capacity = max(capacity, _next_pow2(scene.points.shape[0]))
+            splat = init_from_pointcloud(
+                scene.points, scene.colors, scene.scene_center, capacity,
+                opt.sh_degree, opt.init_opacity, opt.init_scaling, device=dev,
+            )
+
+        self.state = init_train_state(
+            splat, seed=0, n_train_images=len(self.train_cams), opt=opt, device=dev
+        )
+        n0 = int(splat.n_alive())
+        self.plan = RasterPlan(
+            max_instances=max(_next_bucket(n0 * 8), 1 << 16),
+            k_max=1 << 12,
+            chunk=256 if opt.tile_size >= 32 else 128,
+            tile_size=opt.tile_size,
+            pack_bf16=True,  # the JAX trainer's default (trainer.py:205)
+        )
+        self.evaluator = MetricsEvaluator(params.dataset.output_path or ".")
+        self._bg_rng = np.random.default_rng(1234)
+        self._loss_hist: list[float] = []
+        self.project = None  # optional core.project.Project for artifact bookkeeping
+        # what the run did: plan changes [(iteration, max_instances, k_max, redo)], steps
+        # dispatched (redone ones included), eval renders, and the wall-time split
+        self.plan_history: list[tuple[int, int, int, bool]] = []
+        self.n_redo = 0
+        self.steps_dispatched = 0
+        self.eval_renders = 0
+        self.timings = dict.fromkeys(TIMING_KEYS, 0.0)
+        # control flags (reference: pause/save/stop atomics, trainer.cpp:427-472),
+        # driven by cmd::* events so a front-end thread can steer training
+        self._stop_flag = threading.Event()
+        self._pause_flag = threading.Event()
+        self._unsubscribe = [
+            ev.when(ev.StopTraining, lambda e: self._stop_flag.set()),
+            ev.when(ev.PauseTraining, lambda e: self._pause_flag.set()),
+            ev.when(ev.ResumeTraining, lambda e: self._pause_flag.clear()),
+            ev.when(ev.SaveCheckpoint, self._no_checkpoints),
+        ]
+        log.info(
+            "Trainer ready on %s: %d train / %d val cameras, %d gaussians, capacity %d, "
+            "scene_scale %.3f", dev, len(self.train_cams), len(self.val_cams), n0,
+            splat.capacity, splat.scene_scale,
+        )
+        ev.emit(ev.TrainerReady(
+            n_train_cameras=len(self.train_cams), n_val_cameras=len(self.val_cams),
+            n_gaussians=n0,
+        ))
+
+    @staticmethod
+    def _no_checkpoints(_event) -> None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP.md Queue 1 item 5)")
+
+    @staticmethod
+    def _state_from_raw(raw: dict, scene_center, capacity: int, sh_degree: int,
+                        device: torch.device) -> SplatState:
+        n = raw["means"].shape[0]
+        state = init_from_pointcloud(
+            raw["means"], np.zeros((n, 3), np.float32), scene_center, capacity, sh_degree,
+            device=device,
+        )
+        pads = {}
+        for k, v in raw.items():
+            cur = getattr(state, k).clone()
+            cur[:n] = torch.as_tensor(np.asarray(v, np.float32), device=device)
+            pads[k] = cur
+        return dataclasses.replace(state, **pads)
+
+    # ------------------------------------------------------------------ train
+
+    def background_for_step(self, iteration: int) -> np.ndarray:
+        bg = np.zeros(3, np.float32)  # base background is black (trainer.cpp:363)
+        if not self.opt.bg_modulation:
+            return bg
+        w = _inv_weight_piecewise(iteration, self.opt.iterations)
+        if w <= 0:
+            return bg
+        return (1.0 - w) * bg + w * _sine_background(iteration, self._bg_rng)
+
+    def _gut_cfg_for(self, cam):
+        """Per-camera (StepConfig variant, distortion coefficients [12] on the device)."""
+        # stable identity, not id(): a freed-and-reallocated camera object could reuse
+        # an id and silently pick up another camera's distortion coefficients
+        key = (cam.uid, cam.image_name)
+        hit = self._gut_cfg_cache.get(key)
+        if hit is not None:
+            return hit
+        full = CameraParams.from_camera(cam)
+        static = CameraParams(model=full.model, shutter=full.shutter)
+        cfg = dataclasses.replace(self.step_cfg, cam_params=static, max_angle=None)
+        out = (cfg, torch.as_tensor(full.coeff_vector(), device=self.device))
+        self._gut_cfg_cache[key] = out
+        return out
+
+    def _device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=self.device)
+
+    def _dispatch_step(self, sample, iteration: int) -> PendingStep:
+        prev, rng_state = self.state, self.state.rng.get_state()
+        cam = sample.camera
+        cfg, dist = (
+            self._gut_cfg_for(cam) if self.step_cfg.gut else (self.step_cfg, None)
+        )
+        self.state, stats = train_step(
+            self.state,
+            self._device(sample.image),
+            self._device(cam.world_view_transform),
+            self._device(cam.cam_position),
+            sample.fx, sample.fy, sample.cx, sample.cy,
+            self._device(self.background_for_step(iteration)),
+            sample.index,
+            dist,
+            width=cam.image_width, height=cam.image_height,
+            plan=self.plan, opt=cfg,
+            total_iterations=self.opt.iterations,
+        )
+        self.steps_dispatched += 1
+        return PendingStep(iteration=iteration, prev_state=prev, rng_state=rng_state,
+                           stats=stats, plan=self.plan)
+
+    def _scan_chunk(self, it: int, total: int, progress_every: int) -> int:
+        """Steps foldable into one dispatch from `it`: stop at the FIRST iteration that
+        any host hook fires on (that iteration becomes the chunk's last step, so the
+        existing hook code runs at the right boundary)."""
+        k_max = min(int(getattr(self.opt, "scan_steps", 1) or 1), total - it + 1)
+        if k_max <= 1:
+            return 1
+        opt = self.opt
+        for j in range(it, it + k_max):
+            if (
+                self._needs_topology_hook(j)
+                or j % progress_every == 0
+                or (opt.enable_eval and j in opt.eval_steps)
+                or j in opt.save_steps
+                or j == total
+            ):
+                return j - it + 1
+        return k_max
+
+    def _dispatch_scan(self, samples, iteration: int) -> Optional[PendingStep]:
+        """K steps in one `train_step_many` call. Returns None when the samples are
+        heterogeneous (mixed image sizes, or mixed GUT camera configs) — the caller
+        falls back to per-step dispatch."""
+        cams = [s.camera for s in samples]
+        w, h = cams[0].image_width, cams[0].image_height
+        if any(c.image_width != w or c.image_height != h for c in cams):
+            return None
+        if self.step_cfg.gut:
+            pairs = [self._gut_cfg_for(c) for c in cams]
+            cfg = pairs[0][0]
+            if any(p[0] != cfg for p in pairs[1:]):
+                return None
+            dists = torch.stack([p[1] for p in pairs])
+        else:
+            cfg, dists = self.step_cfg, None
+        prev, rng_state = self.state, self.state.rng.get_state()
+        k = len(samples)
+        self.state, stats = train_step_many(
+            self.state,
+            self._device(np.stack([s.image for s in samples])),
+            self._device(np.stack([c.world_view_transform for c in cams])),
+            self._device(np.stack([c.cam_position for c in cams])),
+            np.asarray([[s.fx, s.fy, s.cx, s.cy] for s in samples], np.float32),
+            self._device(np.stack([self.background_for_step(iteration + j)
+                                   for j in range(k)])),
+            np.asarray([s.index for s in samples], np.int32),
+            dists,
+            width=w, height=h, plan=self.plan, opt=cfg,
+            total_iterations=self.opt.iterations,
+        )
+        self.steps_dispatched += k
+        # budget checks cover the whole chunk (max); loss keeps the full [K] vector so
+        # the history records every step
+        reduced = StepStats(
+            loss=stats.loss,
+            total_instances=stats.total_instances.max(),
+            max_tile_count=stats.max_tile_count.max(),
+            n_visible=stats.n_visible.max(),
+        )
+        return PendingStep(iteration=iteration, prev_state=prev, rng_state=rng_state,
+                           stats=reduced, plan=self.plan)
+
+    def _check_pending(self, pending: PendingStep) -> bool:
+        """Validate a completed step's budget counters; grow plan / request redo."""
+        total = int(pending.stats.total_instances)
+        max_tile = int(pending.stats.max_tile_count)
+        plan = pending.plan
+        redo = False
+        new_plan = plan
+        # dataclasses.replace keeps pack_bf16 across replans
+        if total > plan.max_instances:
+            new_plan = dataclasses.replace(
+                new_plan, max_instances=_next_bucket(int(total * 1.3)))
+            redo = True
+        elif total > 0.85 * plan.max_instances:
+            new_plan = dataclasses.replace(
+                new_plan, max_instances=_next_bucket(int(plan.max_instances * 1.3)))
+        # the JAX blend kernel's per-tile checkpoint caps capacity at 512 chunks
+        # (ops/pallas/raster.py); the port keeps the clamp so its plans equal JAX's
+        k_cap = 512 * plan.chunk
+        if max_tile > new_plan.k_max:
+            k_want = _next_pow2(int(max_tile * 1.3))
+            if k_want > k_cap:
+                log.warning(
+                    "k_max request %d exceeds kernel capacity %d (tile with %d "
+                    "instances); clamping — denser tiles will be truncated",
+                    k_want, k_cap, max_tile,
+                )
+            new_plan = dataclasses.replace(new_plan, k_max=min(k_want, k_cap))
+            redo = max_tile <= k_cap  # beyond capacity a redo cannot help
+        elif max_tile > 0.85 * new_plan.k_max and new_plan.k_max * 2 <= k_cap:
+            new_plan = dataclasses.replace(new_plan, k_max=new_plan.k_max * 2)
+        if new_plan != plan:
+            log.info(
+                "raster plan %s -> %s at iter %d (instances %d, max tile %d)%s",
+                (plan.max_instances, plan.k_max), (new_plan.max_instances, new_plan.k_max),
+                pending.iteration, total, max_tile, " [REDO]" if redo else "",
+            )
+            self.plan = new_plan
+        return redo
+
+    def _check_or_roll_back(self, chk: PendingStep) -> bool:
+        """Check one pending step; on overflow restore its input state and the generator,
+        and return True (the caller redoes from chk.iteration)."""
+        plan = self.plan
+        redo = self._check_pending(chk)
+        if self.plan != plan:
+            self.plan_history.append((chk.iteration, self.plan.max_instances,
+                                      self.plan.k_max, redo))
+        if redo:
+            self.n_redo += 1
+            self.state = chk.prev_state
+            self.state.rng.set_state(chk.rng_state)
+            return True
+        self._record_losses(chk)
+        return False
+
+    def _flush_pending(self, pending: list[PendingStep]) -> Optional[int]:
+        """Drain all pending checks; on overflow roll back and return the redo iteration."""
+        t0 = time.perf_counter()
+        try:
+            while pending:
+                chk = pending.pop(0)
+                if self._check_or_roll_back(chk):
+                    pending.clear()
+                    return chk.iteration
+            return None
+        finally:
+            self.timings["pending_checks"] += time.perf_counter() - t0
+
+    def _record_losses(self, chk: PendingStep) -> None:
+        """Append a checked step's loss(es); scan chunks carry a [K] vector."""
+        self._loss_hist.extend(chk.stats.loss.reshape(-1).tolist())
+
+    def _topology_hooks(self, it: int) -> None:
+        """MCMC refine schedule (runs with no steps in flight)."""
+        opt = self.opt
+        if strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine, opt.refine_every):
+            self.state, info = refine_step(
+                self.state, min_opacity=opt.min_opacity, max_cap=opt.max_cap
+            )
+            log.debug("mcmc refine @%d: %s", it, {k: int(v) for k, v in info.items()})
+            ev.emit(ev.ModelUpdated(iteration=it, n_alive=int(info["n_alive"])))
+
+    def _needs_topology_hook(self, it: int) -> bool:
+        opt = self.opt
+        return strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine,
+                                         opt.refine_every)
+
+    def _next_sample(self, loader):
+        t0 = time.perf_counter()
+        sample = next(loader)
+        self.timings["data_wait"] += time.perf_counter() - t0
+        return sample
+
+    def _dispatch(self, loader, it: int, total: int, progress_every: int,
+                  pending: list[PendingStep]) -> int:
+        """Dispatch the step or chunk that starts at `it`; -> its last iteration."""
+        k = self._scan_chunk(it, total, progress_every)
+        samples = [self._next_sample(loader) for _ in range(k)]
+        t0 = time.perf_counter()
+        ps = self._dispatch_scan(samples, it) if k > 1 else None
+        if ps is not None:
+            pending.append(ps)
+        else:  # one step, or heterogeneous samples: per-step dispatch
+            for j, s in enumerate(samples):
+                pending.append(self._dispatch_step(s, it + j))
+        self.timings["dispatch"] += time.perf_counter() - t0
+        return it + k - 1
+
+    def train(self, progress_every: int = 100) -> None:
+        opt = self.opt
+        loader = InfiniteDataLoader(
+            self.train_dataset, num_workers=min(opt.num_workers, 8), seed=7
+        )
+        out_dir = Path(self.params.dataset.output_path or "output")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        ev.emit(ev.TrainingStarted(total_iterations=self.opt.iterations))
+        pending: list[PendingStep] = []
+        t0 = time.time()
+        it = self.state.iteration
+        total = self.opt.iterations
+        try:
+            while it <= total:
+                it = self._dispatch(loader, it, total, progress_every, pending)
+
+                # keep 2 steps in flight; check the older one
+                if len(pending) >= 2:
+                    t1 = time.perf_counter()
+                    chk = pending.pop(0)
+                    redo = self._check_or_roll_back(chk)
+                    self.timings["pending_checks"] += time.perf_counter() - t1
+                    if redo:
+                        it = chk.iteration
+                        pending.clear()
+                        continue
+
+                if self._needs_topology_hook(it):
+                    redo = self._flush_pending(pending)
+                    if redo is not None:
+                        it = redo
+                        continue
+                    t1 = time.perf_counter()
+                    self._topology_hooks(it)
+                    self.timings["hooks"] += time.perf_counter() - t1
+
+                if it % progress_every == 0 and self._loss_hist:
+                    rate = it / (time.time() - t0)
+                    n_alive = int(self.state.splat.n_alive())
+                    log.info(
+                        "iter %d/%d loss %.4f alive %d %.2f it/s",
+                        it, total, self._loss_hist[-1], n_alive, rate,
+                    )
+                    ev.emit(ev.TrainingProgress(
+                        iteration=it, total_iterations=total,
+                        loss=self._loss_hist[-1], n_alive=n_alive, iters_per_s=rate,
+                    ))
+                if self._stop_flag.is_set():
+                    log.info("stop requested at iter %d", it)
+                    ev.emit(ev.TrainingStopped(iteration=it))
+                    break
+                if self._pause_flag.is_set():
+                    ev.emit(ev.TrainingPaused(iteration=it))
+                    while self._pause_flag.is_set() and not self._stop_flag.is_set():
+                        time.sleep(0.1)
+                    ev.emit(ev.TrainingResumed(iteration=it))
+                if opt.enable_eval and it in opt.eval_steps:
+                    redo = self._flush_pending(pending)
+                    if redo is not None:
+                        it = redo
+                        continue
+                    t1 = time.perf_counter()
+                    self.evaluate(it)
+                    self.timings["eval"] += time.perf_counter() - t1
+                if it in opt.save_steps and not opt.skip_intermediate_saving and it != total:
+                    t1 = time.perf_counter()
+                    path = out_dir / f"splat_{it}.ply"
+                    self.save_ply(path)
+                    if self.project is not None:
+                        self.project.add_ply(f"iter_{it}", path, iteration=it)
+                    self.timings["save"] += time.perf_counter() - t1
+                it += 1
+
+            # a redo found here would have to re-run steps the loop has finished; as in
+            # the JAX trainer, the last check only records, and the history shows it
+            self._flush_pending(pending)
+            t1 = time.perf_counter()
+            self.save_ply(out_dir / "splat_final.ply")
+            self.timings["save"] += time.perf_counter() - t1
+            ev.emit(ev.TrainingFinished(iteration=it - 1))
+            if opt.enable_eval:
+                self.evaluator.save_report()
+        finally:
+            loader.close()
+            for unsubscribe in self._unsubscribe:
+                unsubscribe()
+            writer().flush()  # all queued artifact writes are on disk before we return
+
+    # ------------------------------------------------------------- eval/save
+
+    @torch.no_grad()
+    def render_camera(self, sample) -> torch.Tensor:
+        cam = sample.camera
+        splat = self.state.splat
+        sh_deg = active_sh_degree(self.state.iteration, self.opt.sh_degree_interval,
+                                  splat.max_sh_degree)
+        args = (
+            splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw,
+            splat.sh0, splat.shN, splat.alive,
+            self._device(cam.world_view_transform), self._device(cam.cam_position),
+            sample.fx, sample.fy, sample.cx, sample.cy,
+            sh_deg, torch.zeros(3, device=self.device),
+        )
+        self.eval_renders += 1
+        if self.step_cfg.gut:
+            cfg, dist = self._gut_cfg_for(cam)
+            out = rasterize_gut(
+                *args, width=cam.image_width, height=cam.image_height,
+                max_instances=self.plan.max_instances, k_max=self.plan.k_max,
+                tile_size=self.plan.tile_size, cam_params=cfg.cam_params,
+                max_angle=None, dist=dist, device=self.device,
+            )
+        else:
+            out = rasterize(
+                *args, width=cam.image_width, height=cam.image_height,
+                max_instances=self.plan.max_instances, k_max=self.plan.k_max,
+                chunk=self.plan.chunk, tile_size=self.plan.tile_size, device=self.device,
+            )
+        return out.image
+
+    def evaluate(self, iteration: int):
+        ev.emit(ev.EvaluationStarted(iteration=iteration, num_images=len(self.val_dataset)))
+        samples = (self.val_dataset.get(i) for i in range(len(self.val_dataset)))
+        result = self.evaluator.evaluate(
+            iteration, self.render_camera, samples,
+            save_images=self.opt.enable_save_eval_images,
+        )
+        log.info(
+            "eval @%d: PSNR %.3f SSIM %.4f LPIPS n/a (%d imgs, %.1fs)",
+            iteration, result.psnr, result.ssim, result.num_images, result.elapsed_s,
+        )
+        ev.emit(ev.EvaluationCompleted(
+            iteration=iteration, psnr=result.psnr, ssim=result.ssim,
+            lpips=result.lpips, num_images=result.num_images,
+        ))
+        return result
+
+    def _alive_arrays(self) -> dict:
+        splat = self.state.splat
+        alive = splat.alive
+        return {k: v[alive].cpu().numpy() for k, v in splat.params().items()}
+
+    def save_ply(self, path: str | Path) -> None:
+        """Device->host gather now; the disk write runs on the artifact writer thread
+        (reference: detached save thread, splat_data.cpp:455-477). train() flushes the
+        writer before returning."""
+        a = self._alive_arrays()
+        n = a["means"].shape[0]
+
+        def _write():
+            save_splat_ply(
+                path, a["means"], a["sh0"], a["shN"],
+                a["scaling_raw"], a["rotation_raw"], a["opacity_raw"],
+            )
+            log.info("saved %d gaussians to %s", n, path)
+
+        writer().submit(_write)
