@@ -69,15 +69,29 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    `train()` and read just after: K1-K4 once a step (K1, K2 also once an eval render), K1,
    K5, K6 and K4 once a GUT step; a replan and a redo, falling losses, a rising eval PSNR,
    `splat_final.ply` with n == n_alive, `metrics.csv`; then `python -m tpu_splat_torch -d
-   CAPTURE -o OUT --headless -i 16` in a subprocess;
+   CAPTURE -o OUT --headless -i 16` in a subprocess; then, on the same capture:
+   `trainer-adc`, `Trainer` on the shipped ADC preset (`parameter/default_optimization_
+   params.json`: tile 16, chunk 128, bf16 pack) for 96 iterations with refines every 16
+   and an opacity reset at 48, evals scoring LPIPS from random VGG weights (each score held
+   against the same module on the CPU); each refine's n_alive = the previous + n_dup +
+   n_split - n_pruned; `dens_grad2d` of a step through K3/K4 against the plain versions,
+   and the refine on the card against the refine on the CPU on the same dens_* and eps;
+   `trainer-resume`, two MCMC runs of 32 iterations with a checkpoint at 16 and a third
+   resumed from it (the loaded state bit-equal to the saved one, the resumed run within
+   the two runs' spread); `trainer-components`, a run with the bilateral grid and the
+   pose MLP and one with ADMM sparsity (init, one dual update, the prune of
+   int(0.6 n_alive)); every run with the launch counts set to 0 just before and read just
+   after: K1-K4 once a step, K1 and K2 once more an eval render;
 11. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
-   counts; K5 and K6 with their pair counts and ptxas' registers and spills), a `frame`
+   counts; K5 and K6 with their pair counts and ptxas' registers and spills; each kernel's
+   launches in the trainer phases' runs), a `frame`
    JSON line (frame ms and per-stage split), a `train` JSON line (step
    ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
    step), a `trainer` JSON line (the capture, it/s with data loading and its split into
    data wait, dispatch, pending checks, hooks, eval and save, the plan history, redos,
    launches, losses, eval PSNR/SSIM of the pinhole run; the same for the GUT run; the CLI
-   run's time) and, last, {"ok": true, "device": {...}}.
+   run's time; the ADC run's refines, LPIPS, checks and times, the resume spread, the
+   component runs) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
 it exits non-zero before printing any result. Times are medians over CUDA-event-timed
@@ -132,6 +146,8 @@ GUT_STEPS, GUT_PREFIX_STEPS = 20, 6  # the last six through the K7 lane
 # a real sparse model: the kNN init is O(N^2)), and the iterations of its three runs
 TRAINER_VIEWS, TRAINER_SFM = 12, 150_000
 TRAINER_ITERS, TRAINER_GUT_ITERS, TRAINER_CLI_ITERS = 96, 32, 16
+# the ADC preset's run, the resume phase's runs, the bilateral-grid + pose-MLP run
+ADC_ITERS, RESUME_ITERS, COMPONENT_ITERS = 96, 32, 24
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -1386,23 +1402,31 @@ def write_capture(root: Path, params, focal, dev) -> dict:
                 write_s=time.perf_counter() - t0)
 
 
-def trainer_run(params_kw: dict, data: Path, out: Path, dev, counted, plan=None):
+def trainer_run(params_kw: dict, data: Path, out: Path, dev, counted, plan=None,
+                preset: str | None = None, setup=None):
     """Train through the port's `Trainer` with every launch count set to 0 just before
     `train()` and read just after. `plan`: the initial RasterPlan, in place of the
-    Trainer's own. -> (trainer, launches, wall seconds of train())"""
+    Trainer's own; `preset`: an optimization-parameters JSON that `params_kw` overrides;
+    `setup(trainer)`: called before the counts are set to 0 (a resume, a checkpoint
+    schedule). -> (trainer, launches, wall seconds of train())"""
     import torch
 
     from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
                                              TrainingParameters)
     from tpu_splat_torch.training.trainer import Trainer
 
+    opt = (OptimizationParameters.from_file(Path(__file__).resolve().parent / preset)
+           if preset else OptimizationParameters())
     tp = TrainingParameters(dataset=DatasetConfig(data_path=str(data), output_path=str(out),
                                                   test_every=6),
-                            optimization=OptimizationParameters(**params_kw))
+                            optimization=dataclasses.replace(opt, **params_kw))
     t = Trainer(tp, device=dev)
     t.initial_plan = t.plan
     if plan is not None:
         t.plan = plan
+    if setup is not None:
+        setup(t)
+    t.n_alive_at_start = int(t.state.splat.n_alive())
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -1559,7 +1583,377 @@ def trainer_phases(params, focal, dev, counted) -> dict:
             require((root / "cli" / name).exists(), f"the CLI did not write {name}")
         cli = dict(seconds=cli_s, iterations=TRAINER_CLI_ITERS, returncode=proc.returncode)
         phase("trainer-cli", **cli)
-    return dict(capture=capture, pinhole=pin, gut=gut, cli=cli)
+        torch.cuda.empty_cache()
+
+        # -- the ADC preset with LPIPS, checkpoint and resume, the components
+        adc = trainer_adc_phase(root, dev, counted)
+        resume = trainer_resume_phase(root, dev, counted)
+        components = trainer_components_phase(root, dev, counted)
+    return dict(capture=capture, pinhole=pin, gut=gut, cli=cli, adc=adc, resume=resume,
+                components=components)
+
+
+def require_launches(launches: dict, t, label: str) -> None:
+    """K1-K4 once a pinhole step, K1 and K2 once more an eval render, no GUT kernel."""
+    steps, evals = t.steps_dispatched, t.eval_renders
+    require(all(launches[k] == steps + evals for k in ("expand_emission", "blend_forward"))
+            and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
+            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
+                                                "segred_prefix")),
+            f"{label}: K1-K4 must launch once a step (K1, K2 also once an eval render): "
+            f"{launches}, {steps} steps, {evals} eval renders")
+
+
+def require_alive_chain(t, label: str) -> list:
+    """Each refine's n_alive = the previous n_alive + n_dup + n_split - n_pruned (only
+    the refines change the alive set in these schedules). -> the ADC refines"""
+    refines = [r for r in t.refine_log if r["kind"] == "adc"]
+    n_alive = t.n_alive_at_start
+    for r in refines:
+        require(r["n_alive"] == n_alive + r["n_dup"] + r["n_split"] - r["n_pruned"],
+                (f"{label}: refine counts do not add up", n_alive, r))
+        n_alive = r["n_alive"]
+    require(int(t.state.splat.n_alive()) == n_alive, (f"{label}: n_alive", n_alive))
+    return refines
+
+
+class RecordingLPIPS:
+    """The evaluator's LPIPS model, recording each pair it scores (on the host) and the
+    score, so the same pairs can be scored again on the CPU."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    @property
+    def available(self) -> bool:
+        return self.model.available
+
+    def __call__(self, a, b):
+        out = self.model(a, b)
+        self.calls.append((a.cpu(), b.cpu(), out))
+        return out
+
+
+def split_children(alive0: np.ndarray, sc0: np.ndarray, sc1: np.ndarray,
+                   means0: np.ndarray, means1: np.ndarray) -> np.ndarray:
+    """The rows a refine wrote as split children: children A are rows alive before whose
+    scale changed; children B dead rows written with a scale no alive row had (a
+    duplicate copies its candidate's scale)."""
+    changed = (sc1 != sc0).any(-1) | (means1 != means0).any(-1)
+    new_rows = np.nonzero(~alive0 & changed)[0]
+    known = set(map(bytes, sc0[alive0]))
+    child_b = np.zeros_like(alive0)
+    child_b[new_rows] = [bytes(sc1[i]) not in known for i in new_rows]
+    return (alive0 & (sc1 != sc0).any(-1)) | child_b
+
+
+def adc_card_checks(t, dev) -> dict:
+    """On the ADC run's final state: one train step through the kernels against the same
+    step through their plain versions (`dens_count` exactly, `dens_grad2d` within 2e-3 of
+    its largest value: K3's mean2d columns summed by K4 against the plain sums. K3 takes a
+    pixel's suffix as total minus prefix, so its per-pixel terms carry an error of up to
+    1e-4 of the largest term (`tests/test_torch_cuda.py`), and the mean2d gradient sums
+    terms of both signs, which leaves up to ~1e-3 of its largest value; the plain path's
+    own autograd scatter adds with atomics); then the
+    refine on the card against the refine on the CPU on identical dens_* and eps: alive
+    masks, counts, moments and every row but the split children bit for bit, the split
+    children's means and scales rtol 1e-5 (einsum and exp/log on another device)."""
+    import torch
+
+    from tpu_splat_torch.training.train_step import adc_refine_step, train_step
+
+    ts = dataclasses.replace(t.state, dens_count=torch.zeros_like(t.state.dens_count),
+                             dens_grad2d=torch.zeros_like(t.state.dens_grad2d))
+    sample = t.train_dataset.get(0)
+    cam = sample.camera
+    outs = {}
+    for impl in ("kernel", "plain"):
+        out, _ = train_step(ts, t._device(sample.image), t._device(cam.world_view_transform),
+                            t._device(cam.cam_position), sample.fx, sample.fy, sample.cx,
+                            sample.cy, torch.zeros(3, device=dev), sample.index,
+                            width=cam.image_width, height=cam.image_height, plan=t.plan,
+                            opt=t.step_cfg, total_iterations=t.opt.iterations, impl=impl)
+        outs[impl] = out
+    torch.cuda.synchronize()
+    k, p = outs["kernel"], outs["plain"]
+    require(torch.equal(k.dens_count, p.dens_count), "dens_count: kernels against plain")
+    g_max = float(p.dens_grad2d.abs().max())
+    dens_err = float((k.dens_grad2d - p.dens_grad2d).abs().max()) / g_max
+    require(g_max > 0 and dens_err <= 2e-3, ("dens_grad2d: kernels against plain", dens_err))
+    thr = t.opt.grad_threshold
+    flips = int(((k.dens_grad2d > thr) != (p.dens_grad2d > thr)).sum())
+    # and at a threshold that 5% of the Gaussians this step saw exceed
+    seen_p = p.dens_grad2d[p.dens_count > 0]
+    thr95 = float(torch.quantile(seen_p[:1 << 24], 0.95))
+    flips95 = int(((k.dens_grad2d > thr95) != (p.dens_grad2d > thr95)).sum())
+
+    # the refine on the card and on the CPU from the same state, dens_* and eps; at the
+    # preset's threshold few Gaussians grow this early in a run, so the check refines at
+    # the 95th percentile of the alive Gaussians' average gradient when that is lower
+    src = dataclasses.replace(t.state)
+    avg = src.dens_grad2d / torch.clamp_min(src.dens_count, 1.0)
+    seen = src.splat.alive & (src.dens_count > 0)
+    check_thr = min(thr, float(torch.quantile(avg[seen][:1 << 24], 0.95)))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    eps = torch.randn((2, src.splat.capacity, 3), device=dev, generator=gen)
+    kw = dict(grad_threshold=check_thr, grow_scale3d=t.opt.grow_scale3d,
+              prune_opacity=t.opt.prune_opacity, prune_scale3d=t.opt.prune_scale3d,
+              reset_every=t.opt.reset_every, revised_opacity=t.opt.revised_opacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, card_info = adc_refine_step(src, eps=eps, **kw)
+    torch.cuda.synchronize()
+    refine_ms = (time.perf_counter() - t0) * 1e3
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, dict):
+            return {k_: to_cpu(v) for k_, v in x.items()}
+        return x
+
+    cpu_splat = src.splat.to("cpu")
+    cpu_adam = dataclasses.replace(src.adam, exp_avg=to_cpu(src.adam.exp_avg),
+                                   exp_avg_sq=to_cpu(src.adam.exp_avg_sq))
+    cpu_src = dataclasses.replace(src, splat=cpu_splat, adam=cpu_adam,
+                                  rng=torch.Generator(), dens_count=src.dens_count.cpu(),
+                                  dens_grad2d=src.dens_grad2d.cpu())
+    host, host_info = adc_refine_step(cpu_src, eps=eps.cpu(), **kw)
+    counts = {k_: int(v) for k_, v in card_info.items()}
+    require(counts == {k_: int(v) for k_, v in host_info.items()},
+            ("refine counts: card against CPU", counts, host_info))
+    alive0 = cpu_splat.alive.numpy()
+    require(np.array_equal(card.splat.alive.cpu().numpy(), host.splat.alive.numpy()),
+            "refine alive mask: card against CPU")
+    child = split_children(alive0, cpu_splat.scaling_raw.numpy(),
+                           host.splat.scaling_raw.numpy(), cpu_splat.means.numpy(),
+                           host.splat.means.numpy())
+    require(int(child.sum()) == 2 * counts["n_split"], ("split children", int(child.sum())))
+    require(counts["n_dup"] > 0 and counts["n_split"] > 0, ("the check grew nothing", counts))
+    split_err = 0.0
+    for name in ("means", "sh0", "shN", "scaling_raw", "rotation_raw", "opacity_raw"):
+        a = getattr(card.splat, name).cpu().numpy()
+        b = getattr(host.splat, name).numpy()
+        if name in ("means", "scaling_raw"):
+            require(np.array_equal(a[~child], b[~child]), f"refine {name}: copied rows")
+            if child.any():
+                split_err = max(split_err, float(np.max(np.abs(a[child] - b[child])
+                                                        / (np.abs(b[child]) + 1e-6))))
+                require(np.allclose(a[child], b[child], rtol=1e-5, atol=1e-6),
+                        (f"refine {name}: split children", split_err))
+        else:
+            require(np.array_equal(a, b), f"refine {name}: card against CPU")
+        for moments in ("exp_avg", "exp_avg_sq"):
+            require(np.array_equal(getattr(card.adam, moments)[name].cpu().numpy(),
+                                   getattr(host.adam, moments)[name].numpy()),
+                    f"refine {moments} {name}: card against CPU")
+    return dict(dens_grad2d_rel_err=dens_err, dens_grad2d_max=g_max,
+                candidates_kernel=int((k.dens_grad2d > thr).sum()),
+                candidates_plain=int((p.dens_grad2d > thr).sum()), threshold_flips=flips,
+                p95_candidates=int((p.dens_grad2d > thr95).sum()), p95_threshold_flips=flips95,
+                refine_threshold=check_thr, refine_counts=counts, refine_ms=refine_ms,
+                split_children_rel_err=split_err)
+
+
+def trainer_adc_phase(root: Path, dev, counted) -> dict:
+    """`Trainer` on the shipped ADC preset (parameter/default_optimization_params.json:
+    tile 16, so chunk 128, under the Trainer's bf16 pack), capacity 2^20, SH degree 3 at
+    iteration 72, its schedule cut from 30,000 iterations to ADC_ITERS: refines every 16
+    from 16 to 80 and an opacity reset at 48; evals at 8 and ADC_ITERS with LPIPS from
+    random VGG weights, each held against the same module on the CPU (rtol 1e-3: 13
+    float32 convolutions through cuDNN against the CPU's). -> the `trainer.adc` result"""
+    import torch
+
+    from tpu_splat_torch.training import lpips
+    from tpu_splat_torch.training.metrics import LPIPSModel
+
+    weights = root / "lpips" / "lpips_vgg.npz"
+    weights.parent.mkdir()
+    np.savez(weights, **lpips.random_params(0))
+    recorder = []
+
+    def with_lpips(t):
+        t.evaluator.lpips = RecordingLPIPS(LPIPSModel(weights.with_suffix(".pt"), device=dev))
+        recorder.append(t.evaluator.lpips)
+
+    run_kw = dict(iterations=ADC_ITERS, max_cap=1_000_000, sh_degree=3,
+                  sh_degree_interval=ADC_ITERS // 4, scan_steps=8, refine_every=16,
+                  start_refine=8, stop_refine=ADC_ITERS - 8, reset_every=48, enable_eval=True,
+                  eval_steps=[8, ADC_ITERS], save_steps=[ADC_ITERS],
+                  enable_save_eval_images=False, num_workers=8)
+    t, launches, wall = trainer_run(run_kw, root / "capture", root / "adc", dev, counted,
+                                    preset="parameter/default_optimization_params.json",
+                                    setup=with_lpips)
+    res = trainer_summary(t, launches, wall)
+    require(t.plan.tile_size == 16 and t.plan.chunk == 128 and t.plan.pack_bf16,
+            ("the ADC preset's plan", t.plan))
+    require_launches(launches, t, "trainer-adc")
+    require(len(t._loss_hist) == ADC_ITERS and all(math.isfinite(v) for v in t._loss_hist),
+            "ADC trainer losses")
+    refines = require_alive_chain(t, "trainer-adc")
+    require([r["iteration"] for r in refines] == [16, 32, 48, 64, 80], refines)
+    require([r["iteration"] for r in t.refine_log if r["kind"] == "reset_opacity"] == [48],
+            t.refine_log)
+    grown = sum(r["n_dup"] + r["n_split"] for r in refines)
+    require(grown > 0, ("ADC grew nothing", refines))
+    # LPIPS: every eval scored on the card, each pair again on the CPU
+    (rec,) = recorder
+    require(len(rec.calls) == t.eval_renders and all(r.lpips is not None
+                                                       for r in t.evaluator.results),
+            ("LPIPS per eval", len(rec.calls), t.eval_renders))
+    host = lpips.LPIPSTorch(weights, device="cpu")
+    lpips_err = 0.0
+    for a, b, got in rec.calls:
+        want = host(a, b)
+        lpips_err = max(lpips_err, abs(got - want) / abs(want))
+    require(lpips_err <= 1e-3, ("LPIPS: card against CPU", lpips_err))
+    a, b, _ = rec.calls[0]
+    a, b = a.to(dev), b.to(dev)
+    lpips_ms = cuda_ms(lambda: rec.model(a, b), 5)
+    res.update(refines=refines, grown=grown, lpips_rel_err=lpips_err, lpips_eval_ms=lpips_ms,
+               lpips=[r.lpips for r in t.evaluator.results],
+               cuts=dict(iterations=f"30000 -> {ADC_ITERS}", refine="every 100 from 500 to "
+                         f"15000 -> every 16 from 8 to {ADC_ITERS - 8}",
+                         reset_every="3000 -> 48", sh_degree_interval=f"1000 -> {ADC_ITERS // 4}",
+                         eval_steps=f"7000, 30000 -> 8, {ADC_ITERS}"))
+    res.update(adc_card_checks(t, dev))
+    res.update(trainer_step_probe(t))
+    phase("trainer-adc", **{k: res[k] for k in (
+        "iterations", "it_per_s", "split_s", "plan_history", "launches", "refines", "evals",
+        "lpips", "lpips_rel_err", "lpips_eval_ms", "dens_grad2d_rel_err", "threshold_flips",
+        "p95_candidates", "p95_threshold_flips", "refine_threshold", "refine_counts", "refine_ms", "split_children_rel_err",
+        "step_ms_alone", "step_ms_beside_loader", "cuts")})
+    del t
+    torch.cuda.empty_cache()
+    return res
+
+
+def trainer_resume_phase(root: Path, dev, counted) -> dict:
+    """Two uninterrupted MCMC runs of RESUME_ITERS iterations with a checkpoint at the
+    half, and a third `Trainer` resumed from the first run's checkpoint (one loader worker
+    each, so all three draw the same samples; no refine, whose relocation draws would turn
+    a last-bit difference into a different Gaussian). The loaded state must equal the saved one
+    bit for bit, and the resumed run must end within the spread of the two uninterrupted
+    runs: for each parameter group, max |resumed - first| <= 3 max |second - first| plus
+    1e-6 of the group's largest value (autograd's index backward adds with atomics on the
+    card, so two runs of the same code differ in the last bits). -> `trainer.resume`"""
+    import torch
+
+    from tpu_splat_torch.training import checkpoint
+
+    half = RESUME_ITERS // 2
+    run_kw = dict(iterations=RESUME_ITERS, max_cap=1_000_000, sh_degree=3, scan_steps=8,
+                  start_refine=RESUME_ITERS, eval_steps=[], save_steps=[], num_workers=1)
+    saved = []
+
+    def checkpointed(t):
+        t.checkpoint_every = half
+        save = t.save_checkpoint
+
+        def save_and_keep(path, it):
+            saved.append((path, checkpoint.state_arrays(t.state), t.state.rng.get_state()))
+            return save(path, it)
+
+        t.save_checkpoint = save_and_keep
+
+    runs = []
+    for i in range(2):
+        t, launches, wall = trainer_run(run_kw, root / "capture", root / f"resume{i}", dev,
+                                        counted, setup=checkpointed)
+        require_launches(launches, t, f"trainer-resume run {i}")
+        runs.append((t.state, list(t._loss_hist), wall))
+        del t
+    path, arrays, rng_state = saved[0]
+    require(path.name == f"checkpoint_{half}.npz", path)
+    loaded, extra = checkpoint.load_checkpoint(path, device=dev)
+    got = checkpoint.state_arrays(loaded)
+    require(sorted(got) == sorted(arrays) and all(np.array_equal(got[k], v)
+                                                 for k, v in arrays.items())
+            and torch.equal(loaded.rng.get_state(), rng_state),
+            "the loaded checkpoint differs from the saved state")
+
+    def resumed_from(t):
+        t.resume(path)
+        t.checkpoint_every = half
+
+    t, launches, wall = trainer_run(run_kw, root / "capture", root / "resumed", dev, counted,
+                                    setup=resumed_from)
+    require_launches(launches, t, "trainer-resume resumed run")
+    require(len(t._loss_hist) == RESUME_ITERS - half, len(t._loss_hist))
+    first, second = checkpoint.state_arrays(runs[0][0]), checkpoint.state_arrays(runs[1][0])
+    mine = checkpoint.state_arrays(t.state)
+    spread = {}
+    for k in ("splat/means", "splat/sh0", "splat/shN", "splat/scaling_raw",
+              "splat/rotation_raw", "splat/opacity_raw"):
+        d_runs = float(np.max(np.abs(second[k] - first[k])))
+        d_resumed = float(np.max(np.abs(mine[k] - first[k])))
+        spread[k] = dict(two_runs=d_runs, resumed=d_resumed)
+        require(d_resumed <= 3 * d_runs + 1e-6 * float(np.max(np.abs(first[k]))),
+                ("the resumed run ends outside the spread of two runs", k, spread[k]))
+    alive_same = np.array_equal(second["splat/alive"], first["splat/alive"])
+    require(not alive_same or np.array_equal(mine["splat/alive"], first["splat/alive"]),
+            "the resumed run's alive mask differs where two runs agree")
+    res = dict(iterations=RESUME_ITERS, checkpoint_at=half, spread=spread, launches=launches,
+               loaded_bit_equal=True, loss_last=[runs[0][1][-1], runs[1][1][-1],
+                                                 t._loss_hist[-1]],
+               walls=[runs[0][2], runs[1][2], wall], plan=dataclasses.asdict(t.plan))
+    phase("trainer-resume", **res)
+    del t, runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def trainer_components_phase(root: Path, dev, counted) -> dict:
+    """A pinhole run with the bilateral grid and the pose MLP (COMPONENT_ITERS), and one with
+    ADMM sparsity, its schedule cut to 8 base iterations and 52 sparsify steps so that the
+    ADMM init (8), one dual update (58) and the final prune (60) all happen. Requires
+    finite losses, grids and pose parameters that moved from their init, and a prune of
+    int(prune_ratio * n_alive) Gaussians. -> `trainer.components`"""
+    import torch
+
+    from tpu_splat_torch.training.bilateral_grid import init_grids
+
+    base = dict(max_cap=1_000_000, sh_degree=3, scan_steps=8, refine_every=8, start_refine=4,
+                stop_refine=1_000, eval_steps=[], save_steps=[], num_workers=8)
+    t, launches, wall = trainer_run(dict(base, iterations=COMPONENT_ITERS,
+                                         use_bilateral_grid=True, pose_optimization="mlp"),
+                                    root / "capture", root / "components", dev, counted)
+    require_launches(launches, t, "trainer-components grid+pose")
+    ts = t.state
+    require(all(math.isfinite(v) for v in t._loss_hist)
+            and len(t._loss_hist) == COMPONENT_ITERS, "component run losses")
+    grid0 = init_grids(ts.bilateral_grids.shape[0], device=dev)
+    grid_moved = float((ts.bilateral_grids - grid0).abs().max())
+    pose_moved = float(ts.pose_params["layers"][-1]["w"].abs().max())
+    require(grid_moved > 0 and pose_moved > 0, ("grids or poses did not move", grid_moved,
+                                                pose_moved))
+    res = dict(grid_pose=dict(iterations=COMPONENT_ITERS, it_per_s=len(t._loss_hist) / wall,
+                              launches=launches, grid_max_move=grid_moved,
+                              pose_last_layer_max=pose_moved,
+                              loss_first8=statistics.mean(t._loss_hist[:8]),
+                              loss_last8=statistics.mean(t._loss_hist[-8:])))
+    del t, ts
+    torch.cuda.empty_cache()
+
+    t, launches, wall = trainer_run(dict(base, iterations=8, enable_sparsity=True,
+                                         sparsify_steps=52, prune_ratio=0.6),
+                                    root / "capture", root / "sparsity", dev, counted)
+    require_launches(launches, t, "trainer-components sparsity")
+    require(len(t._loss_hist) == 60 and all(math.isfinite(v) for v in t._loss_hist),
+            "sparsity run losses")
+    kinds = [(r["iteration"], r["kind"]) for r in t.refine_log if r["kind"] != "mcmc"]
+    require(kinds == [(8, "admm_init"), (58, "admm_update"), (60, "sparsity_prune")], kinds)
+    prune = t.refine_log[-1]
+    want = int(np.float32(np.float32(0.6) * np.float32(prune["n_before"])))
+    require(prune["n_pruned"] == want > 0
+            and int(t.state.splat.n_alive()) == prune["n_before"] - want,
+            ("sparsity prune", prune, want))
+    res["sparsity"] = dict(iterations=60, it_per_s=60 / wall, launches=launches,
+                           schedule=kinds, prune=prune)
+    phase("trainer-components", **res)
+    del t
+    torch.cuda.empty_cache()
+    return res
 
 
 def segred_random_phases(dev) -> dict:
@@ -2088,6 +2482,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer = trainer_phases(params, focal, dev, counted)
     trainer.update(device=kind, nvidia_smi=smi)
+    # each kernel's launches in the product path's runs, beside its main path's
+    wrapper_of = {"expand.cu": "expand_emission", "blend_fwd.cu": "blend_forward",
+                  "blend_bwd.cu": "blend_backward", "segsum.cu": "segsum_emission",
+                  "gut_fwd.cu": "gut_blend_forward", "gut_bwd.cu": "gut_blend_backward",
+                  "segprefix.cu": "segred_prefix"}
+    runs = dict(pinhole=trainer["pinhole"], gut=trainer["gut"], adc=trainer["adc"],
+                resumed=trainer["resume"], grid_pose=trainer["components"]["grid_pose"],
+                sparsity=trainer["components"]["sparsity"])
+    for entry in kernels:
+        fn = wrapper_of[entry["source"].rsplit("/", 1)[1]]
+        entry["trainer_launches"] = {k: v["launches"][fn] for k, v in runs.items()}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)

@@ -23,8 +23,14 @@ launches;
 the train step through the kernels against the same step through the plain versions:
 loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
 move a parameter by lr * sign(g) where |g| is tiny, so a rounding-level difference in a
-near-zero gradient moves that one parameter by a whole lr).
+near-zero gradient moves that one parameter by a whole lr);
+ADC's `dens_grad2d` through K3/K4 within 1e-3 of its largest value of the plain versions',
+`dens_count` exactly; the ADC refine on the card bit-equal to the CPU's outside the split
+children (rtol 1e-5 there); LPIPS on the card rtol 1e-3 of the CPU's; a checkpoint of a
+card state bit for bit, the CUDA generator's state included.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -401,3 +407,140 @@ def test_jpeg_decodes_through_nvjpeg_on_card(tmp_path):
     assert np.abs(got.astype(np.int16) - want).max() <= 3
     img = load_image(p, 2)
     assert img.shape == (3, 12, 16) and img.dtype == np.float32
+
+
+def _card_splat(rng, n=3000, cap=4096):
+    """n random Gaussians in front of the identity camera in a `cap`-slot pool on the card."""
+    pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    params = dict(
+        means=pts, sh0=rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+        shN=rng.normal(0, 0.05, (n, 15, 3)).astype(np.float32),
+        scaling_raw=np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(np.float32),
+        rotation_raw=rng.normal(0, 1, (n, 4)).astype(np.float32),
+        opacity_raw=rng.normal(0, 1, (n, 1)).astype(np.float32))
+    pad = lambda x: np.concatenate([x, np.ones((cap - n,) + x.shape[1:], np.float32)])
+    return splat_from_numpy({k: pad(v) for k, v in params.items()}, np.arange(cap) < n, 3,
+                            "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,chunk", [(16, 128), (32, 256)])
+def test_adc_dens_grad2d_through_kernels_matches_plain_on_card(tile, chunk):
+    """ADC's densification info from K3's mean2d columns summed by K4 (bf16 pack) against
+    the plain versions: dens_count exactly, dens_grad2d within 1e-3 of its largest value
+    (float32 pixel sums in another order)."""
+    _require_cuda()
+    from tpu_splat_torch.training.train_step import TrainState
+
+    rng = np.random.default_rng(5)
+    size = 128
+    f = 0.5 * size / np.tan(np.radians(30.0))
+    args = (rng.random((3, size, size)).astype(np.float32), np.eye(4, dtype=np.float32),
+            np.zeros(3, np.float32), f, f, size / 2, size / 2, np.zeros(3, np.float32))
+    plan = RasterPlan(max_instances=1 << 17, k_max=2048, chunk=chunk, tile_size=tile,
+                      pack_bf16=True)
+    kw = dict(width=size, height=size, plan=plan, opt=StepConfig(strategy="default"),
+              total_iterations=100)
+    splat = _card_splat(rng)
+    out = {}
+    for impl in ("kernel", "plain"):
+        ts = init_train_state(splat, seed=1)
+        for _ in range(2):
+            ts, _ = train_step(ts, *args, impl=impl, **kw)
+        out[impl] = ts
+    k, p = out["kernel"], out["plain"]
+    assert isinstance(k, TrainState) and torch.equal(k.dens_count, p.dens_count)
+    assert int((k.dens_count == 2).sum()) > 1000
+    scale = float(p.dens_grad2d.abs().max())
+    assert scale > 0 and float((k.dens_grad2d - p.dens_grad2d).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+def test_adc_refine_on_card_matches_cpu():
+    """The refine on the card against the refine on the CPU on identical dens_* and eps:
+    counts, alive mask, moments and the rows that are not split children bit for bit;
+    split children's means and scales rtol 1e-5."""
+    _require_cuda()
+    from tpu_splat_torch.training.train_step import adc_refine_step
+
+    rng = np.random.default_rng(6)
+    splat = _card_splat(rng, n=3000, cap=4096)
+    ts = init_train_state(splat, seed=2)
+    count = torch.from_numpy(rng.integers(0, 6, 4096).astype(np.float32)).cuda()
+    grad = torch.from_numpy(rng.uniform(0, 3e-4, 4096).astype(np.float32)).cuda() * count
+    ts = dataclasses.replace(ts, dens_count=count, dens_grad2d=grad, iteration=3001)
+    eps = torch.randn((2, 4096, 3), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    kw = dict(grad_threshold=2e-4, grow_scale3d=0.05, prune_opacity=0.3, prune_scale3d=0.05,
+              reset_every=3000, revised_opacity=False)
+    card, card_info = adc_refine_step(ts, eps=eps, **kw)
+    cpu_ts = dataclasses.replace(
+        ts, splat=ts.splat.to("cpu"), rng=torch.Generator(), dens_count=count.cpu(),
+        dens_grad2d=grad.cpu(), adam=dataclasses.replace(
+            ts.adam, exp_avg={k: v.cpu() for k, v in ts.adam.exp_avg.items()},
+            exp_avg_sq={k: v.cpu() for k, v in ts.adam.exp_avg_sq.items()}))
+    host, host_info = adc_refine_step(cpu_ts, eps=eps.cpu(), **kw)
+    counts = {k: int(v) for k, v in card_info.items()}
+    assert counts == {k: int(v) for k, v in host_info.items()}
+    assert counts["n_dup"] > 10 and counts["n_split"] > 10 and counts["n_pruned"] > 10
+    assert torch.equal(card.splat.alive.cpu(), host.splat.alive)
+    from chip_smoke import split_children
+
+    child = split_children(cpu_ts.splat.alive.numpy(), cpu_ts.splat.scaling_raw.numpy(),
+                           host.splat.scaling_raw.numpy(), cpu_ts.splat.means.numpy(),
+                           host.splat.means.numpy())
+    assert child.sum() == 2 * counts["n_split"]
+    for k in ("means", "sh0", "shN", "scaling_raw", "rotation_raw", "opacity_raw"):
+        a, b = getattr(card.splat, k).cpu().numpy(), getattr(host.splat, k).numpy()
+        if k in ("means", "scaling_raw"):
+            np.testing.assert_array_equal(a[~child], b[~child], err_msg=k)
+            np.testing.assert_allclose(a[child], b[child], rtol=1e-5, atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        np.testing.assert_array_equal(card.adam.exp_avg[k].cpu().numpy(),
+                                      host.adam.exp_avg[k].numpy(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(tmp_path):
+    """LPIPS-VGG from random weights on the card against the same module on the CPU:
+    rtol 1e-3 (13 float32 convolutions through cuDNN, TF32 off, against the CPU's)."""
+    _require_cuda()
+    from tpu_splat_torch.training import lpips
+
+    np.savez(tmp_path / "w.npz", **lpips.random_params(1))
+    rng = np.random.default_rng(7)
+    a = rng.random((3, 96, 128)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    got = lpips.LPIPSTorch(tmp_path / "w.npz", device="cuda")(a, b)
+    want = lpips.LPIPSTorch(tmp_path / "w.npz", device="cpu")(a, b)
+    assert want > 0 and abs(got - want) <= 1e-3 * want
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trips_on_card(tmp_path, caplog):
+    """A card state with the bilateral grid and the pose MLP round-trips bit for bit, the
+    CUDA generator's state included; loaded on the CPU, the generator is seeded from the
+    key data instead (its state cannot cross device types), and that is logged."""
+    _require_cuda()
+    import logging
+
+    from tpu_splat_torch.core.config import OptimizationParameters
+    from tpu_splat_torch.training import checkpoint
+
+    opt = OptimizationParameters(use_bilateral_grid=True, pose_optimization="mlp")
+    ts = init_train_state(_card_splat(np.random.default_rng(8)), seed=4, n_train_images=3,
+                          opt=opt)
+    torch.randn(7, device="cuda", generator=ts.rng)
+    checkpoint.save_checkpoint(tmp_path / "c.npz", ts, extra={"plan_k_max": 4096})
+    back, extra = checkpoint.load_checkpoint(tmp_path / "c.npz", device="cuda")
+    assert extra == {"plan_k_max": 4096} and back.device.type == "cuda"
+    assert torch.equal(back.rng.get_state(), ts.rng.get_state())
+    want, got = checkpoint.state_arrays(ts), checkpoint.state_arrays(back)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    with caplog.at_level(logging.INFO):
+        on_cpu, _ = checkpoint.load_checkpoint(tmp_path / "c.npz", device="cpu")
+    assert "seeded from its JAX key data" in caplog.text and on_cpu.rng.initial_seed() == 4

@@ -162,6 +162,8 @@ def test_port_imports_no_jax():
         "import tpu_splat_torch.ops.cuda.gut_kernels, tpu_splat_torch.ops.cuda.build\n"
         "from tpu_splat_torch.training import losses, optim, strategy_mcmc, train_step\n"
         "from tpu_splat_torch.training import dataset, metrics, trainer\n"
+        "from tpu_splat_torch.training import bilateral_grid, checkpoint, lpips, poseopt\n"
+        "from tpu_splat_torch.training import sparsity, strategy_default\n"
         "from tpu_splat_torch.io import colmap, image, loader, nvjpeg, ply, transforms\n"
         "from tpu_splat_torch.core import camera, config, project\n"
         "from tpu_splat_torch.utils import async_io, events\n"

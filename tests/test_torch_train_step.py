@@ -170,24 +170,6 @@ def test_train_step_many_is_the_loop_of_train_step():
     assert ts_b.iteration == 3 and losses[1] != losses[0]
 
 
-@pytest.mark.parametrize("setting", [dict(strategy="default"),
-                                     dict(gut=True, pose_optimization="direct"),
-                                     dict(use_bilateral_grid=True),
-                                     dict(pose_optimization="direct"),
-                                     dict(enable_sparsity=True)])
-def test_unsupported_settings_raise(setting):
-    ts = _to_port(jax_ts.init_train_state(_jax_state(), seed=1))
-    cam = make_camera(SIZE, SIZE)
-    gt = np.zeros((3, SIZE, SIZE), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts_mod.train_step(ts, gt, cam["w2c"], cam["cam_position"], cam["fx"], cam["fy"],
-                          cam["cx"], cam["cy"], np.zeros(3, np.float32), 0, width=SIZE,
-                          height=SIZE, plan=ts_mod.RasterPlan(1 << 14, 256),
-                          opt=ts_mod.StepConfig(**setting), total_iterations=TOTAL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts_mod.init_train_state(ts.splat, opt=ts_mod.StepConfig(**setting), device="cpu")
-
-
 def test_train_state_round_trip_and_device_rule(monkeypatch):
     ts_j = jax_ts.init_train_state(_jax_state(), seed=1)
     ts = _to_port(ts_j)

@@ -13,7 +13,8 @@ falling loss, PSNR > 10 on the one val image, PLY with n == n_alive, the CLI's f
 forced overflow that rolls back the state and the generator, grows the plan and keeps
 `pack_bf16`, with one loss per iteration; a short `--gut` run on an OPENCV capture; that a
 distorted capture without `--gut`, each flag not ported yet, and training with no card and
-no `--device cpu` raise.
+no `--device cpu` raise; each flag of the ADC / checkpoint / component slice trained for 12
+iterations through `cli.main` with its effect checked (`test_ported_flags_train`).
 """
 
 import csv
@@ -89,25 +90,43 @@ def test_plan_growth_matches_jax(case):
     assert pself.plan.pack_bf16 == bf16
 
 
-@pytest.mark.parametrize("scan_steps,progress_every,eval_on", [(8, 100, True), (8, 7, False),
-                                                               (1, 100, True), (5, 20, True)])
-def test_scan_chunks_match_jax(scan_steps, progress_every, eval_on):
+SCAN_CASES = [  # (scan_steps, progress_every, eval_on, checkpoint_every, other fields)
+    (8, 100, True, 0, {}), (8, 7, False, 0, {}), (1, 100, True, 0, {}), (5, 20, True, 0, {}),
+    (8, 100, True, 0, dict(strategy="default", reset_every=90, pause_refine_after_reset=20)),
+    (8, 100, False, 45, dict(strategy="default", reset_every=60)),
+    (8, 100, True, 0, dict(enable_sparsity=True, iterations=200, sparsify_steps=110)),
+    (5, 33, False, 16, dict(strategy="default", enable_sparsity=True, iterations=170,
+                            sparsify_steps=130, reset_every=64)),
+]
+
+
+@pytest.mark.parametrize("scan_steps,progress_every,eval_on,checkpoint_every,extra", SCAN_CASES)
+def test_scan_chunks_match_jax(scan_steps, progress_every, eval_on, checkpoint_every, extra):
     fields = dict(iterations=300, refine_every=25, start_refine=30, stop_refine=250,
                   eval_steps=[50, 123, 300], save_steps=[77, 300], enable_eval=eval_on,
                   scan_steps=scan_steps)
+    fields.update(extra)
     jopt = JaxOptimizationParameters(**fields)
     opt = OptimizationParameters(**fields)
-    jself = types.SimpleNamespace(opt=jopt, checkpoint_every=0, _timelapse_due=lambda j: False)
+    jself = types.SimpleNamespace(opt=jopt, checkpoint_every=checkpoint_every,
+                                  _timelapse_due=lambda j: False)
     jself._needs_topology_hook = lambda j: jax_trainer.Trainer._needs_topology_hook(jself, j)
-    pself = types.SimpleNamespace(opt=opt)
+    jself.total_iterations = jax_trainer.Trainer.total_iterations.fget(jself)
+    pself = types.SimpleNamespace(opt=opt, checkpoint_every=checkpoint_every)
     pself._needs_topology_hook = lambda j: trainer.Trainer._needs_topology_hook(pself, j)
-    it, chunks = 1, []
-    while it <= 300:
-        k = trainer.Trainer._scan_chunk(pself, it, 300, progress_every)
-        assert k == jax_trainer.Trainer._scan_chunk(jself, it, 300, progress_every), it
+    total = trainer.Trainer.total_iterations.fget(pself)
+    assert total == jself.total_iterations
+    it, chunks, hooks = 1, [], 0
+    while it <= total:
+        k = trainer.Trainer._scan_chunk(pself, it, total, progress_every)
+        assert k == jax_trainer.Trainer._scan_chunk(jself, it, total, progress_every), it
         chunks.append(k)
         it += k
-    assert sum(chunks) == 300 and max(chunks) <= scan_steps
+        hooks += trainer.Trainer._needs_topology_hook(pself, it - 1)
+    for j in range(1, total + 1):
+        assert trainer.Trainer._needs_topology_hook(pself, j) == \
+            jax_trainer.Trainer._needs_topology_hook(jself, j), j
+    assert sum(chunks) == total and max(chunks) <= scan_steps and hooks > 3
 
 
 ARGVS = [
@@ -290,11 +309,8 @@ def test_distorted_capture_needs_gut(opencv_dir, tmp_path):
         trainer.Trainer(_small_params(opencv_dir, tmp_path / "x"), device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--resume", "c.npz"], ["--checkpoint-every", "5"],
-                                   ["--sog"], ["--timelapse-images", "a.png"],
-                                   ["--batch-size", "2"], ["--strategy", "default"],
-                                   ["--bilateral-grid"], ["--pose-opt", "direct"],
-                                   ["--enable-sparsity"], []])
+@pytest.mark.parametrize("flags", [["--sog"], ["--timelapse-images", "a.png"],
+                                   ["--batch-size", "2"], []])
 def test_unported_flags_raise(colmap_dir, tmp_path, flags):
     argv = ["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--device", "cpu"] + flags
     if flags:
@@ -311,3 +327,120 @@ def test_no_card_and_no_device_raises(colmap_dir, tmp_path, monkeypatch):
     assert not (tmp_path / "o").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.Trainer(_small_params(colmap_dir, tmp_path / "o"))
+
+
+# The flags ported in this slice, each trained for 12 iterations through `cli.main` on the
+# 48x48 capture with its effect checked; `--gut --pose-opt` is refused as in the JAX
+# Trainer (trainer.py:190-191).
+PORTED_FLAGS = {
+    "checkpoint-every": ["--checkpoint-every", "6"],
+    "resume": ["--checkpoint-every", "6", "--resume", "{first}/checkpoint_6.npz"],
+    "save-checkpoint-event": [],
+    "strategy-default": ["--strategy", "default"],
+    "adc-preset": ["--config", "parameter/default_optimization_params.json"],
+    "adc-gut": ["--strategy", "default", "--gut"],
+    "bilateral-grid": ["--bilateral-grid"],
+    "pose-opt-direct": ["--pose-opt", "direct"],
+    "pose-opt-mlp": ["--pose-opt", "mlp"],
+    "enable-sparsity": ["--enable-sparsity", "-i", "6", "--sparsify-steps", "6"],
+    "eval-lpips": ["--eval", "--test-every", "3"],
+    "gut-pose-opt": ["--gut", "--pose-opt", "direct"],
+}
+
+
+def _short_config(path, preset=None):
+    fields = json.loads(open(preset).read()) if preset else {}
+    fields.update(max_cap=256, refine_every=4, start_refine=2, stop_refine=11, reset_every=8,
+                  grad_threshold=2e-5, eval_steps=[12], save_steps=[], num_workers=1,
+                  enable_save_eval_images=False, scan_steps=4)
+    path.write_text(json.dumps(fields))
+    return path
+
+
+@pytest.mark.parametrize("case", list(PORTED_FLAGS))
+def test_ported_flags_train(case, colmap_dir, tmp_path, monkeypatch):
+    from tpu_splat_torch.training import checkpoint, lpips
+    from tpu_splat_torch.utils import events as ev
+
+    flags = list(PORTED_FLAGS[case])
+    preset = None
+    if case == "adc-preset":  # the shipped preset, its schedule cut to 12 iterations
+        preset, flags = flags[1], []
+    cfg = _short_config(tmp_path / "opt.json", preset)
+    if case == "resume":
+        first = tmp_path / "first"
+        cli.main(["-d", str(colmap_dir), "-o", str(first), "--config", str(cfg), "-i", "12",
+                  "--headless", "--device", "cpu", "--checkpoint-every", "6"])
+        flags = [f.format(first=first) for f in flags]
+    if case == "eval-lpips":  # random LPIPS weights where the evaluator looks for them
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "weights").mkdir()
+        np.savez(tmp_path / "weights" / "lpips_vgg.npz", **lpips.random_params(0))
+    kept, train = [], trainer.Trainer.train
+
+    def recording_train(self, *a, **kw):
+        kept.append(self)
+        self.n_alive_at_start = int(self.state.splat.n_alive())
+        if case == "save-checkpoint-event":  # a front end asks for a checkpoint
+            ev.emit(ev.SaveCheckpoint())
+        return train(self, *a, **kw)
+
+    monkeypatch.setattr(trainer.Trainer, "train", recording_train)
+    out = tmp_path / "out"
+    argv = ["-d", str(colmap_dir), "-o", str(out), "--config", str(cfg), "-i", "12",
+            "--headless", "--device", "cpu"] + flags
+    if case == "gut-pose-opt":
+        with pytest.raises(ValueError, match="incompatible with --gut"):
+            cli.main(argv)
+        return
+    assert cli.main(argv) == 0
+    (t,) = kept
+    assert np.isfinite(t._loss_hist).all() and t.state.iteration == 13
+    ts = t.state
+    if case == "checkpoint-every":
+        for it in (6, 12):
+            back, extra = checkpoint.load_checkpoint(out / f"checkpoint_{it}.npz", device="cpu")
+            assert back.iteration == it + 1 and extra["plan_k_max"] == t.plan.k_max
+        assert json.loads((out / "out.ls").read_text())["checkpoints"] == [
+            str(out / "checkpoint_6.npz"), str(out / "checkpoint_12.npz")]
+        assert len(t._loss_hist) == 12
+    elif case == "resume":
+        assert len(t._loss_hist) == 6 and t.samples_drawn == 12
+    elif case == "save-checkpoint-event":
+        back, _ = checkpoint.load_checkpoint(out / "checkpoint_4.npz", device="cpu")
+        assert back.iteration == 5  # the first chunk's end, with no step in flight
+    elif case in ("strategy-default", "adc-preset", "adc-gut"):
+        refines = [r for r in t.refine_log if r["kind"] == "adc"]
+        assert [r["iteration"] for r in refines] == [4, 8]
+        assert [r["iteration"] for r in t.refine_log if r["kind"] == "reset_opacity"] == [8]
+        n_alive = t.n_alive_at_start
+        for r in refines:  # only refines change the alive set in this schedule
+            assert r["n_alive"] == n_alive + r["n_dup"] + r["n_split"] - r["n_pruned"], r
+            n_alive = r["n_alive"]
+        assert int(ts.splat.n_alive()) == n_alive
+        grown = sum(r["n_dup"] + r["n_split"] for r in refines)
+        if case == "adc-gut":  # zero mean2d gradients under GUT: nothing grows
+            assert grown == 0 and not ts.dens_grad2d.any()
+        else:
+            assert grown > 0
+        if case == "adc-preset":
+            assert t.plan.tile_size == 16 and t.plan.chunk == 128 and t.plan.pack_bf16
+    elif case == "bilateral-grid":
+        assert ts.bilateral_grids.shape == (6, 12, 8, 16, 16) and ts.bilateral_opt.count == 12
+        assert not torch.equal(ts.bilateral_grids, trainer.init_train_state(
+            ts.splat, n_train_images=6, opt=t.opt, device="cpu").bilateral_grids)
+    elif case == "pose-opt-direct":
+        assert ts.pose_params["embeddings"].abs().max() > 0 and ts.pose_opt.count == 12
+    elif case == "pose-opt-mlp":
+        assert ts.pose_params["layers"][-1]["w"].abs().max() > 0
+    elif case == "enable-sparsity":
+        (prune,) = [r for r in t.refine_log if r["kind"] == "sparsity_prune"]
+        assert prune["iteration"] == 12
+        assert [r["iteration"] for r in t.refine_log if r["kind"] == "admm_init"] == [6]
+        assert prune["n_pruned"] == int(0.6 * prune["n_before"]) > 0
+        assert int(ts.splat.n_alive()) == prune["n_before"] - prune["n_pruned"]
+    elif case == "eval-lpips":
+        with open(out / "metrics.csv") as f:
+            (row,) = list(csv.DictReader(f))
+        assert row["iteration"] == "12" and float(row["lpips"]) > 0
+        assert t.evaluator.results[-1].lpips == pytest.approx(float(row["lpips"]), abs=1e-4)

@@ -1,4 +1,5 @@
-"""Numpy fixtures shared by the PyTorch port's tests; imports neither JAX nor the port."""
+"""Numpy fixtures shared by the PyTorch port's tests. Importing it imports neither JAX
+nor the port; the helpers that build or read JAX states import JAX when called."""
 
 import numpy as np
 
@@ -99,3 +100,101 @@ def jpeg_fixture():
                           np.int8).reshape(24, 32, 3)
     rgb = (jpeg_fixture_source().astype(np.int16) + delta).astype(np.uint8)
     return base64.b64decode("".join(_JPEG_B64)), rgb
+
+
+def jax_state_fields(ts_j) -> dict:
+    """The keyword fields of `tpu_splat_torch.convert.train_state_from_numpy` for a JAX
+    TrainState, as numpy arrays: the splat, Adam, the iteration, the densification info
+    and the optional components (those that are None stay out)."""
+    import jax
+
+    nd = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
+    fields = dict(
+        splat_params=nd(ts_j.splat.params()), alive=np.asarray(ts_j.splat.alive),
+        exp_avg=nd(ts_j.adam.exp_avg), exp_avg_sq=nd(ts_j.adam.exp_avg_sq),
+        step_count={k: int(v) for k, v in ts_j.adam.step_count.items()},
+        iteration=int(ts_j.iteration), max_sh_degree=ts_j.splat.max_sh_degree,
+        scene_scale=ts_j.splat.scene_scale, dens_count=np.asarray(ts_j.dens_count),
+        dens_grad2d=np.asarray(ts_j.dens_grad2d))
+
+    def aux(o):
+        return dict(m=jax.tree.map(np.asarray, o.m), v=jax.tree.map(np.asarray, o.v),
+                    count=int(o.count))
+
+    if ts_j.bilateral_grids is not None:
+        fields.update(bilateral_grids=np.asarray(ts_j.bilateral_grids),
+                      bilateral_opt=aux(ts_j.bilateral_opt))
+    if ts_j.pose_params is not None:
+        fields.update(pose_params=jax.tree.map(np.asarray, ts_j.pose_params),
+                      pose_opt=aux(ts_j.pose_opt))
+    if ts_j.admm is not None:
+        fields["admm"] = dict(u=np.asarray(ts_j.admm.u), z=np.asarray(ts_j.admm.z))
+    return fields
+
+
+def jax_splat(n=120, capacity=256, seed=7):
+    """A JAX SplatState of `n` points in front of the camera at z = 5 with anisotropic
+    scales and tilted rotations (isotropic splats have an identically zero rotation
+    gradient)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from tpu_splat.core.splat import init_from_pointcloud
+
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    cols = rng.random((n, 3)).astype(np.float32)
+    state = init_from_pointcloud(pts, cols, np.array([0, 0, 5.0]), capacity=capacity)
+    q = rng.normal(0, 0.5, (capacity, 4)).astype(np.float32)
+    q[:, 0] += 2.0
+    scaling = np.asarray(state.scaling_raw) + rng.normal(0, 0.4, (capacity, 3)).astype(
+        np.float32)
+    return dataclasses.replace(state, rotation_raw=jnp.asarray(q),
+                               scaling_raw=jnp.asarray(scaling))
+
+
+def recorded_grads():
+    """A context manager that records what each `torch.autograd.grad` call inside it
+    returns (a list of gradient tuples), so a test reads the gradients a port train step
+    took without taking them again."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def recorder():
+        calls, grad = [], torch.autograd.grad
+
+        def wrapped(*args, **kwargs):
+            out = grad(*args, **kwargs)
+            calls.append(out)
+            return out
+
+        torch.autograd.grad = wrapped
+        try:
+            yield calls
+        finally:
+            torch.autograd.grad = grad
+
+    return recorder()
+
+
+def check_params_like_jax(ts_t, ts_j, compared: dict, lrs: dict, n_steps: int) -> None:
+    """The splat parameters after `n_steps` train steps of each package, as
+    `tests/test_torch_train_step.py::test_train_step_matches_jax` holds them: Adam's first
+    steps move a parameter by lr * sign(g) wherever |g| is tiny against its history, so
+    entries are compared only where the port's gradient exceeded 1e-6 of the group's
+    largest at every step (`compared`), within 4e-3 of the group's learning rate per step;
+    shN, frozen for the first 1000 iterations, exactly."""
+    for k, mask in compared.items():
+        want = np.asarray(getattr(ts_j.splat, k))
+        got = getattr(ts_t.splat, k).numpy()
+        if k == "shN":
+            np.testing.assert_array_equal(got, want)
+            continue
+        mask = mask.numpy()
+        assert mask.mean() > 0.05, k  # dead slots have no gradient
+        np.testing.assert_allclose(got[mask], want[mask], rtol=0,
+                                   atol=4e-3 * lrs[k] * n_steps + 1e-7, err_msg=k)

@@ -1,6 +1,9 @@
 """Command-line interface of the port (port of `tpu_splat/cli.py`): training and `--view`.
 
     python -m tpu_splat_torch -d DATA -o OUT --headless [--eval] [--gut] [--device cpu]
+        [--strategy default | --config parameter/default_optimization_params.json]
+        [--bilateral-grid] [--pose-opt direct|mlp] [--enable-sparsity]
+        [--checkpoint-every N] [--resume OUT/checkpoint_N.npz]
     python -m tpu_splat_torch --view model.ply -o renders [--device cpu]
 
 trains a COLMAP or Blender capture (`run_headless` -> `Trainer.train`), or renders an
@@ -9,8 +12,9 @@ Config precedence is the JAX CLI's: struct defaults <- `--config` JSON <- CLI fl
 resolved parameters are saved to the output directory.
 
 Flags whose code is not ported yet stay in the parser and raise NotImplementedError
-(`training/trainer.py::check_ported`, and here `--resume`/`--checkpoint-every`); so does
-training without `--headless`, which attaches the live viewer in the JAX package.
+(`training/trainer.py::check_ported`: `--sog`, `--timelapse-images`, `--batch-size > 1`,
+`--mesh-*`); so does training without `--headless`, which attaches the live viewer in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timelapse-images", nargs="*", dest="timelapse_images")
     p.add_argument("--timelapse-every", type=int, dest="timelapse_every")
     p.add_argument("--rc", action="store_true", default=None)
-    # checkpointing (not ported yet)
+    # checkpointing (no reference counterpart; SURVEY.md §5.4)
     p.add_argument("--resume", metavar="CKPT", help="resume training from a checkpoint")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="save a full training checkpoint every N iterations")
@@ -171,10 +175,6 @@ def run_headless(args: argparse.Namespace) -> int:
 
     params = params_from_args(args)
     check_ported(params)
-    if args.resume or args.checkpoint_every:
-        raise NotImplementedError(
-            "checkpoints (--resume, --checkpoint-every) are not ported yet (ROADMAP.md "
-            "Queue 1 item 5)")
     if not args.headless:
         raise NotImplementedError(
             "the live training viewer is not ported yet (ROADMAP.md Queue 1 item 8): "
@@ -197,6 +197,9 @@ def run_headless(args: argparse.Namespace) -> int:
         project.save()
 
         trainer = Trainer(params, device=device)
+        if args.resume:
+            trainer.resume(args.resume)
+        trainer.checkpoint_every = args.checkpoint_every
         trainer.project = project
         trainer.train()
         final = out_dir / "splat_final.ply"

@@ -104,6 +104,10 @@ class Project:
         )
         self.save()
 
+    def add_checkpoint(self, path: str | Path) -> None:
+        self.checkpoints.append(str(path))
+        self.save()
+
 
 def _pid_alive(pid: int) -> bool:
     try:

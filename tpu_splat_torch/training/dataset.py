@@ -72,12 +72,15 @@ class InfiniteDataLoader:
         num_workers: int = 4,
         prefetch: int = 8,
         seed: int = 0,
+        skip: int = 0,  # indices of the stream already consumed (a resumed run's position)
     ):
         self.dataset = dataset
         self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         self._index_lock = threading.Lock()
         self._rng = np.random.default_rng(seed)
         self._perm: list[int] = []
+        for _ in range(skip):
+            self._next_index()
         self._stop = threading.Event()
         self._workers = [
             threading.Thread(target=self._worker, daemon=True)

@@ -1,32 +1,43 @@
-"""The train step: render -> loss -> backward -> Adam -> MCMC noise (port of
-`tpu_splat/training/train_step.py`, its default configuration).
+"""The train step: pose opt -> render -> bilateral grid -> loss -> backward -> Adam (port of
+`tpu_splat/training/train_step.py`).
 
 Mirrors Trainer::train_step fast path (src/training/trainer.cpp:579-858) as one function
 (the reference's separate .backward() calls sum into one loss); refinement (MCMC
-relocate/grow) is dispatched by the host on the refine schedule as a separate function.
+relocate/grow, ADC grow/prune/reset, the ADMM updates and prune) is dispatched by the host
+on its schedule as separate functions, keeping the step free of branches on the data.
 
 The whole step is static-shape: capacity-C parameter tensors, instance budget / per-tile
 capacity from a host-managed `RasterPlan`; the step reports the actual counts (as device
 tensors, without a sync) so the host can grow the plan and redo an overflowing step.
 
-Supported here: `strategy="mcmc"`, the pinhole fast path or, with `gut=True`, the GUT
-camera path (`ops/gut.py::rasterize_gut`: distorted pinhole, fisheye, ortho, rolling
-shutter), no components. Pose optimization, the bilateral grid, ADMM sparsity and the ADC
-strategy are still to port (ROADMAP.md, Queue 1 items 6-7): asking for one raises
-NotImplementedError, the step never trains something else instead.
+Strategies: MCMC (noise injection every step) and ADC (`strategy="default"`: the step
+accumulates the densification info from dL/dmean2d, which `rasterize` exposes through a
+zero `mean2d_offset`). Cameras: the pinhole fast path or, with `gut=True`, the GUT camera
+path (`ops/gut.py::rasterize_gut`); as in the JAX package the GUT path takes no
+`mean2d_offset`, so ADC under GUT accumulates zero gradients and never grows.
 
-State: `TrainState` holds tensors on one device, the iteration and Adam's per-group step
+Optional components (all None/off by default, matching trainer.cpp wiring):
+  * pose optimization (components/poseopt.cpp): w2c = poseopt(w2c, cam_idx), separate Adam
+    lr 1e-5 (trainer.cpp:384-386).
+  * bilateral grid (components/bilateral_grid.cpp): rendered -> slice(grids[img_idx]) before
+    the photometric loss; + tv_loss_weight * tv; separate Adam lr 2e-3 eps 1e-15 with
+    WarmupExponentialLR (trainer.cpp:66-101).
+  * ADMM sparsity loss during the appended sparsify phase (trainer.cpp:622-646).
+
+State: `TrainState` holds tensors on one device, the iteration and the optimizers' step
 counts as Python ints, and a `torch.Generator` on the state's device in place of the JAX
 key. A step returns a new state and leaves the one it was given untouched (the generator
-object is shared and advances).
+object is shared and advances). Every function that draws also takes the draw as an
+optional argument (`noise=`, `eps=`, `src=`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.splat import SplatState
@@ -34,9 +45,74 @@ from ..device import resolve_device
 from ..ops.cameras import CameraParams
 from ..ops.gut import rasterize_gut
 from ..ops.rasterize import rasterize, to_device
-from . import strategy_mcmc
+from . import bilateral_grid as bg
+from . import poseopt as po
+from . import sparsity as sp
+from . import strategy_default, strategy_mcmc
 from .losses import photometric_loss, regularization_losses
 from .optim import AdamState, adam_step, group_lrs, init_adam_state, means_lr_at
+
+
+def tree_map(fn, *trees):
+    """`fn` over the tensors of nested dicts and lists of the same structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [tree_map(fn, *items) for items in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of nested dicts and lists, in `tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """A tree of `tree`'s structure holding `leaves` (in `tree_leaves`' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+@dataclass
+class AuxOptState:
+    """Plain Adam state for a component's parameters (bilateral grids / pose params)."""
+
+    m: Any
+    v: Any
+    count: int
+
+    @classmethod
+    def init(cls, params) -> "AuxOptState":
+        return cls(m=tree_map(torch.zeros_like, params), v=tree_map(torch.zeros_like, params),
+                   count=0)
+
+
+@torch.no_grad()
+def aux_adam_step(params, grads, state: AuxOptState, lr: float, eps: float = 1e-8,
+                  b1: float = 0.9, b2: float = 0.999):
+    """torch::optim::Adam semantics for component optimizers. The bias corrections and the
+    learning rate are float32 host scalars, as the JAX package computes them on the
+    device."""
+    c = state.count + 1
+    cf = np.float32(c)
+    bc1 = float(np.float32(1.0) - np.power(np.float32(b1), cf))
+    bc2 = float(np.float32(1.0) - np.power(np.float32(b2), cf))
+    lr = float(np.float32(lr))
+
+    def upd(p, g, m, v):
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * g * g
+        return p - lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps), m2, v2
+
+    out = [upd(*a) for a in zip(tree_leaves(params), tree_leaves(grads),
+                                tree_leaves(state.m), tree_leaves(state.v))]
+    new_p = tree_unflatten(params, [o[0] for o in out])
+    new_m = tree_unflatten(params, [o[1] for o in out])
+    new_v = tree_unflatten(params, [o[2] for o in out])
+    return new_p, AuxOptState(m=new_m, v=new_v, count=c)
 
 
 @dataclass
@@ -45,6 +121,15 @@ class TrainState:
     adam: AdamState
     rng: torch.Generator  # on the state's device
     iteration: int  # 1-based
+    # ADC densification info (zeros when strategy != default)
+    dens_count: torch.Tensor  # [C] f32
+    dens_grad2d: torch.Tensor  # [C] f32
+    # optional components (None = disabled)
+    bilateral_grids: Optional[torch.Tensor] = None  # [n_images, 12, L, H, W]
+    bilateral_opt: Optional[AuxOptState] = None
+    pose_params: Optional[Any] = None
+    pose_opt: Optional[AuxOptState] = None
+    admm: Optional[sp.ADMMState] = None
 
     @property
     def device(self) -> torch.device:
@@ -60,15 +145,26 @@ def init_train_state(
     device: str | torch.device | None = None,
 ) -> TrainState:
     """Build a fresh TrainState on `device` (the CUDA card when None; raises without
-    one). Components asked for through `opt` are not ported yet and raise."""
-    _check_supported(opt)
+    one), with the components that `opt` (OptimizationParameters) asks for. The pose
+    MLP's random init draws from the state's generator."""
     dev = resolve_device(device)
     if splat.device != dev:
         splat = splat.to(dev)
     rng = torch.Generator(device=dev)
     rng.manual_seed(seed)
+    bilateral_grids = bilateral_opt = pose_params = pose_opt = None
+    if opt is not None and getattr(opt, "use_bilateral_grid", False):
+        bilateral_grids = bg.init_grids(n_train_images, opt.bilateral_grid_X,
+                                        opt.bilateral_grid_Y, opt.bilateral_grid_W, device=dev)
+        bilateral_opt = AuxOptState.init(bilateral_grids)
+    if opt is not None and getattr(opt, "pose_optimization", "none") != "none":
+        pose_params = po.init(opt.pose_optimization, rng, n_train_images, device=dev)
+        pose_opt = AuxOptState.init(pose_params)
+    zeros = torch.zeros((splat.capacity,), dtype=torch.float32, device=dev)
     return TrainState(splat=splat, adam=init_adam_state(splat.params()), rng=rng,
-                      iteration=1)
+                      iteration=1, dens_count=zeros, dens_grad2d=zeros.clone(),
+                      bilateral_grids=bilateral_grids, bilateral_opt=bilateral_opt,
+                      pose_params=pose_params, pose_opt=pose_opt)
 
 
 class StepStats(NamedTuple):
@@ -106,10 +202,16 @@ class StepConfig:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
-    # components (not ported yet: any setting but these defaults raises)
+    # components
     use_bilateral_grid: bool = False
+    tv_loss_weight: float = 10.0
+    bilateral_grid_lr: float = 2e-3
     pose_optimization: str = "none"
+    pose_lr: float = 1e-5
     enable_sparsity: bool = False
+    init_rho: float = 5e-4
+    sparsify_start: int = 30_000  # = base iterations (sparsity_optimizer.hpp:91)
+    sparsify_steps: int = 15_000
     # GUT path (--gut): distorted / fisheye cameras (trainer.cpp:586-597)
     gut: bool = False
     cam_params: CameraParams = CameraParams()
@@ -118,29 +220,22 @@ class StepConfig:
     @classmethod
     def from_params(cls, p) -> "StepConfig":
         # the camera model is per dataset, not an optimization parameter: the caller
-        # sets cam_params and max_angle with dataclasses.replace
-        return cls(**{f.name: getattr(p, f.name) for f in dataclasses.fields(cls)
-                      if f.name not in ("cam_params", "max_angle")})
-
-
-_UNSUPPORTED = (
-    ("strategy", "mcmc", "the ADC strategy (ROADMAP.md Queue 1 item 6)"),
-    ("use_bilateral_grid", False, "the bilateral grid (ROADMAP.md Queue 1 item 7)"),
-    ("pose_optimization", "none", "pose optimization (ROADMAP.md Queue 1 item 7)"),
-    ("enable_sparsity", False, "ADMM sparsity (ROADMAP.md Queue 1 item 7)"),
-)
-
-
-def _check_supported(opt) -> None:
-    for name, supported, what in _UNSUPPORTED:
-        if opt is not None and getattr(opt, name, supported) != supported:
-            raise NotImplementedError(
-                f"{name}={getattr(opt, name)!r}: {what} is not ported yet")
+        # sets cam_params and max_angle with dataclasses.replace; pose_lr keeps its
+        # default, as in the JAX package
+        same = ("lambda_dssim", "scale_reg", "opacity_reg", "sh_degree_interval", "strategy",
+                "means_lr", "shs_lr", "opacity_lr", "scaling_lr", "rotation_lr",
+                "use_bilateral_grid", "tv_loss_weight", "bilateral_grid_lr",
+                "pose_optimization", "enable_sparsity", "init_rho", "sparsify_steps", "gut")
+        return cls(sparsify_start=p.iterations, **{k: getattr(p, k) for k in same})
 
 
 def active_sh_degree(iteration: int, interval: int, max_degree: int) -> int:
     """SH degree schedule: +1 every `sh_degree_interval` iters (mcmc.cpp:370-373)."""
     return min(iteration // interval, max_degree)
+
+
+def _leaves_requiring_grad(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
 def train_step(
@@ -150,7 +245,7 @@ def train_step(
     cam_position,
     fx, fy, cx, cy,
     bg_color,  # [3]
-    cam_idx=0,  # index into the train split (used by the components; unused here)
+    cam_idx=0,  # index into the train split (pose embedding / bilateral grid)
     dist=None,  # [12] per-sample distortion coeffs (GUT path; model stays in opt)
     *,
     width: int,
@@ -164,19 +259,35 @@ def train_step(
 ) -> tuple[TrainState, StepStats]:
     """One training iteration on the state's device. Camera inputs may be numpy arrays
     or tensors."""
-    _check_supported(opt)
     splat = ts.splat
     dev = ts.device
     it = ts.iteration
+    cam_idx = int(cam_idx)
     sh_deg = active_sh_degree(it, opt.sh_degree_interval, splat.max_sh_degree)
     gt_image = to_device(gt_image, dev)
 
-    params = {k: v.detach().requires_grad_(True) for k, v in splat.params().items()}
+    use_pose = opt.pose_optimization != "none" and ts.pose_params is not None
+    use_bilateral = opt.use_bilateral_grid and ts.bilateral_grids is not None
+    use_sparsity = (opt.enable_sparsity and ts.admm is not None
+                    and sp.should_apply_loss(it, opt.sparsify_start, opt.sparsify_steps))
+    # dL/dmean2d through a zero offset: only ADC reads it, and GUT takes no offset
+    use_mean2d = opt.strategy == "default" and not opt.gut
+
+    params = _leaves_requiring_grad(splat.params())
+    pose_params = _leaves_requiring_grad(ts.pose_params) if use_pose else None
+    grids = _leaves_requiring_grad(ts.bilateral_grids) if use_bilateral else None
+    mean2d_offset = (torch.zeros((splat.capacity, 2), dtype=splat.means.dtype, device=dev,
+                                 requires_grad=True) if use_mean2d else None)
+
+    w2c = to_device(w2c, dev)
+    cam_position = to_device(cam_position, dev)
+    if use_pose:
+        w2c = po.apply(opt.pose_optimization, pose_params, w2c, cam_idx)
+        cam_position = -w2c[:3, :3].T @ w2c[:3, 3]
     scene = (params["means"], params["scaling_raw"], params["rotation_raw"],
              params["opacity_raw"], params["sh0"], params["shN"], splat.alive,
              w2c, cam_position, fx, fy, cx, cy, sh_deg, bg_color)
-    if getattr(opt, "gut", False):
-        # pose opt is incompatible with GUT in the reference too (trainer.cpp:371)
+    if opt.gut:
         out = rasterize_gut(
             *scene, width=width, height=height,
             max_instances=plan.max_instances, k_max=plan.k_max, tile_size=plan.tile_size,
@@ -187,15 +298,36 @@ def train_step(
         out = rasterize(
             *scene, width=width, height=height,
             max_instances=plan.max_instances, k_max=plan.k_max, chunk=plan.chunk,
-            tile_size=plan.tile_size, pack_bf16=plan.pack_bf16, device=dev, impl=impl,
+            tile_size=plan.tile_size, pack_bf16=plan.pack_bf16, mean2d_offset=mean2d_offset,
+            device=dev, impl=impl,
         )
-    loss = photometric_loss(out.image, gt_image, opt.lambda_dssim)
+    image = out.image
+    if use_bilateral:
+        image = bg.slice_grid(grids[cam_idx], image)
+    loss = photometric_loss(image, gt_image, opt.lambda_dssim)
     loss = loss + regularization_losses(params, splat.alive, opt.scale_reg, opt.opacity_reg)
+    if use_bilateral:
+        loss = loss + opt.tv_loss_weight * bg.tv_loss(grids)
+    if use_sparsity:
+        loss = loss + sp.sparsity_loss(params["opacity_raw"], splat.alive, ts.admm,
+                                       opt.init_rho)
+
     names = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+    inputs = [params[k] for k in names]
+    if use_mean2d:
+        inputs.append(mean2d_offset)
+    pose_leaves = tree_leaves(pose_params) if use_pose else []
+    inputs += pose_leaves
+    if use_bilateral:
+        inputs.append(grids)
+    grads = list(torch.autograd.grad(loss, inputs, allow_unused=True))
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
     # bands above the active SH degree take no part in the render: zero gradient
-    param_grads = {k: torch.zeros_like(params[k]) if g is None else g
-                   for k, g in zip(names, grads)}
+    param_grads = dict(zip(names, grads[:len(names)]))
+    rest = grads[len(names):]
+    mean2d_grads = rest.pop(0) if use_mean2d else None
+    pose_grads = tree_unflatten(ts.pose_params, rest[:len(pose_leaves)]) if use_pose else None
+    bilateral_grads = rest[len(pose_leaves)] if use_bilateral else None
 
     lrs = dict(group_lrs(opt, splat.scene_scale))
     # ExponentialLR stepped once per iteration; iteration is 1-based so step i uses gamma^(i-1)
@@ -205,10 +337,37 @@ def train_step(
     new_splat = splat.replace_params(new_params)
 
     # MCMC noise injection every step, scaled by current means lr (mcmc.cpp:349-367)
-    new_splat = strategy_mcmc.inject_noise(new_splat, lrs["means"], eps=noise,
-                                           generator=ts.rng)
+    if opt.strategy == "mcmc":
+        new_splat = strategy_mcmc.inject_noise(new_splat, lrs["means"], eps=noise,
+                                               generator=ts.rng)
 
-    new_ts = dataclasses.replace(ts, splat=new_splat, adam=new_adam, iteration=it + 1)
+    # ADC densification info accumulation (kernels_backward.cuh:232-236); under GUT the
+    # mean2d gradient is zero, as in the JAX package
+    dens_count, dens_grad2d = ts.dens_count, ts.dens_grad2d
+    if opt.strategy == "default":
+        if mean2d_grads is None:
+            mean2d_grads = torch.zeros((splat.capacity, 2), dtype=splat.means.dtype,
+                                       device=dev)
+        dens_count, dens_grad2d = strategy_default.accumulate_densification(
+            dens_count, dens_grad2d, mean2d_grads, out.aux.visible, width, height)
+
+    # component optimizers
+    new_pose_params, new_pose_opt = ts.pose_params, ts.pose_opt
+    if use_pose:
+        new_pose_params, new_pose_opt = aux_adam_step(ts.pose_params, pose_grads, ts.pose_opt,
+                                                      opt.pose_lr)
+    new_grids, new_bopt = ts.bilateral_grids, ts.bilateral_opt
+    if use_bilateral:
+        gamma = 0.01 ** (1.0 / total_iterations)
+        blr = bg.warmup_exponential_lr(opt.bilateral_grid_lr, it, gamma)
+        new_grids, new_bopt = aux_adam_step(ts.bilateral_grids, bilateral_grads,
+                                            ts.bilateral_opt, blr, eps=1e-15)
+
+    new_ts = dataclasses.replace(
+        ts, splat=new_splat, adam=new_adam, iteration=it + 1, dens_count=dens_count,
+        dens_grad2d=dens_grad2d, bilateral_grids=new_grids, bilateral_opt=new_bopt,
+        pose_params=new_pose_params, pose_opt=new_pose_opt,
+    )
     stats = StepStats(
         loss=loss.detach(),
         total_instances=out.aux.total_instances,
@@ -261,3 +420,54 @@ def refine_step(ts: TrainState, *, min_opacity: float, max_cap: int,
     )
     new_ts = dataclasses.replace(ts, splat=splat, adam=adam)
     return new_ts, {"n_relocated": n_relocated, "n_new": n_new, "n_alive": splat.n_alive()}
+
+
+def adc_refine_step(
+    ts: TrainState,
+    *,
+    grad_threshold: float,
+    grow_scale3d: float,
+    prune_opacity: float,
+    prune_scale3d: float,
+    reset_every: int,
+    revised_opacity: bool,
+    eps=None,  # [2, C, 3] split-offset normals; drawn from ts.rng when None
+) -> tuple[TrainState, dict]:
+    """ADC grow+prune round; resets densification info (default_strategy.cpp:301-309)."""
+    splat, adam, info = strategy_default.refine(
+        ts.splat, ts.adam, ts.dens_count, ts.dens_grad2d, ts.iteration,
+        grad_threshold=grad_threshold, grow_scale3d=grow_scale3d,
+        prune_opacity=prune_opacity, prune_scale3d=prune_scale3d,
+        reset_every=reset_every, revised_opacity=revised_opacity, eps=eps,
+        generator=ts.rng,
+    )
+    new_ts = dataclasses.replace(
+        ts, splat=splat, adam=adam, dens_count=torch.zeros_like(ts.dens_count),
+        dens_grad2d=torch.zeros_like(ts.dens_grad2d),
+    )
+    return new_ts, info
+
+
+def adc_reset_opacity_step(ts: TrainState, *, prune_opacity: float) -> TrainState:
+    splat, adam = strategy_default.reset_opacity(ts.splat, ts.adam, prune_opacity)
+    return dataclasses.replace(ts, splat=splat, adam=adam)
+
+
+@torch.no_grad()
+def admm_init_step(ts: TrainState, *, prune_ratio: float) -> TrainState:
+    admm = sp.init_admm(ts.splat.opacity_raw, ts.splat.alive, prune_ratio)
+    return dataclasses.replace(ts, admm=admm)
+
+
+@torch.no_grad()
+def admm_update_step(ts: TrainState, *, prune_ratio: float) -> TrainState:
+    admm = sp.update_admm(ts.splat.opacity_raw, ts.splat.alive, ts.admm, prune_ratio)
+    return dataclasses.replace(ts, admm=admm)
+
+
+@torch.no_grad()
+def sparsity_prune_step(ts: TrainState, *,
+                        prune_ratio: float) -> tuple[TrainState, torch.Tensor]:
+    mask = sp.prune_mask(ts.splat.opacity_raw, ts.splat.alive, prune_ratio)
+    splat = strategy_default.remove_gaussians(ts.splat, mask)
+    return dataclasses.replace(ts, splat=splat), torch.sum(mask, dtype=torch.int32)

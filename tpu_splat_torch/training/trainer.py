@@ -13,11 +13,24 @@ Uninterrupted stretches between host hooks go to `train_step_many` in chunks of
 `scan_steps`; heterogeneous chunks (mixed image sizes or GUT camera configs) fall back to
 one dispatch a step, as in the JAX package.
 
-Schedule hooks, host-dispatched between steps: the MCMC refine (relocate + grow) on the
-strict (start, stop) window (mcmc.cpp:501-505). Still to port, and raising
-NotImplementedError when asked for (`check_ported`): the ADC strategy and the components
-(ROADMAP.md Queue 1 items 6-7), checkpoints (item 5), SOG export and the timelapse
-(item 8), batched multi-device steps (item 9).
+Schedule hooks (all host-dispatched between steps, against the reference's post_backward):
+  * MCMC: refine (relocate+grow) on the strict (start, stop) window (mcmc.cpp:501-505).
+  * ADC: grow/prune on is_refining (default_strategy.cpp:31-35) + reset_opacity every
+    reset_every iters, both only while iter < stop_refine (:292-309).
+  * ADMM sparsity: init at `iterations`, dual update every 50, final prune at
+    iterations + sparsify_steps (sparsity_optimizer.hpp:101-118, trainer.cpp:622-646).
+Each of these iterations ends a chunk of `scan_steps`, and the hook runs with no step in
+flight. The densification info and the component states live in the `TrainState`, so a
+rollback brings them back with the rest.
+
+Checkpoints (`checkpoint_every`, the `SaveCheckpoint` event) are written after a flush of
+the pending steps, with the plan and the data loader's position in `extra`; a run resumed
+from one (`resume`) starts at the state's iteration with that plan, and its loader
+continues the sample stream where the saved run's stood (the JAX Trainer restarts it), so
+with one loader worker a resumed run repeats the uninterrupted one bit for bit.
+
+Still to port, and raising NotImplementedError when asked for (`check_ported`): SOG export
+and the timelapse (ROADMAP.md Queue 1 item 8), batched multi-device steps (item 9).
 """
 
 from __future__ import annotations
@@ -44,11 +57,15 @@ from ..ops.rasterize import rasterize
 from ..utils import events as ev
 from ..utils.async_io import writer
 from ..utils.log import get_logger
-from . import strategy_mcmc
+from . import checkpoint
+from . import sparsity as sp
+from . import strategy_default, strategy_mcmc
 from .dataset import CameraDataset, InfiniteDataLoader, split_cameras
 from .metrics import MetricsEvaluator
 from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_sh_degree,
-                         init_train_state, refine_step, train_step, train_step_many)
+                         adc_refine_step, adc_reset_opacity_step, admm_init_step,
+                         admm_update_step, init_train_state, refine_step,
+                         sparsity_prune_step, train_step, train_step_many)
 
 log = get_logger(__name__)
 
@@ -103,10 +120,6 @@ def check_ported(params: TrainingParameters) -> None:
     """Raise NotImplementedError for a setting whose code is not ported yet."""
     opt, ds = params.optimization, params.dataset
     for asked, what, item in (
-        (opt.strategy != "mcmc", "the ADC strategy (--strategy default)", 6),
-        (opt.use_bilateral_grid, "the bilateral grid", 7),
-        (opt.pose_optimization != "none", "pose optimization", 7),
-        (opt.enable_sparsity, "ADMM sparsity", 7),
         (opt.save_sog, "SOG export", 8),
         (bool(ds.timelapse_images), "the timelapse", 8),
         (opt.batch_size > 1 or opt.mesh_data > 1 or opt.mesh_gauss > 1,
@@ -120,7 +133,7 @@ def check_ported(params: TrainingParameters) -> None:
 @dataclass
 class PendingStep:
     iteration: int
-    prev_state: TrainState
+    prev_state: TrainState  # densification info and component states included
     rng_state: torch.Tensor  # the generator's state before the step, restored on a redo
     stats: StepStats  # device tensors, read one step later
     plan: RasterPlan
@@ -180,6 +193,8 @@ class Trainer:
             # its own coefficients (include/core/camera.hpp:16-125)
             self.step_cfg = dataclasses.replace(self.step_cfg, gut=True)
             self._gut_cfg_cache: dict[tuple, tuple] = {}
+            if opt.pose_optimization != "none":
+                raise ValueError("pose optimization is incompatible with --gut (trainer.cpp:371)")
 
         # model init (training_setup.cpp:50-117): SfM points, --init-ply, or random
         dev = self.device
@@ -214,13 +229,16 @@ class Trainer:
             tile_size=opt.tile_size,
             pack_bf16=True,  # the JAX trainer's default (trainer.py:205)
         )
-        self.evaluator = MetricsEvaluator(params.dataset.output_path or ".")
+        self.evaluator = MetricsEvaluator(params.dataset.output_path or ".", device=dev)
         self._bg_rng = np.random.default_rng(1234)
         self._loss_hist: list[float] = []
+        self.checkpoint_every: int = 0  # 0 = off; full-state checkpoints (checkpoint.py)
+        self.samples_drawn = 0  # the data loader's position (checkpoints carry it)
         self.project = None  # optional core.project.Project for artifact bookkeeping
         # what the run did: plan changes [(iteration, max_instances, k_max, redo)], steps
         # dispatched (redone ones included), eval renders, and the wall-time split
         self.plan_history: list[tuple[int, int, int, bool]] = []
+        self.refine_log: list[dict] = []  # each topology hook that ran, with its counts
         self.n_redo = 0
         self.steps_dispatched = 0
         self.eval_renders = 0
@@ -229,11 +247,12 @@ class Trainer:
         # driven by cmd::* events so a front-end thread can steer training
         self._stop_flag = threading.Event()
         self._pause_flag = threading.Event()
+        self._save_flag = threading.Event()
         self._unsubscribe = [
             ev.when(ev.StopTraining, lambda e: self._stop_flag.set()),
             ev.when(ev.PauseTraining, lambda e: self._pause_flag.set()),
             ev.when(ev.ResumeTraining, lambda e: self._pause_flag.clear()),
-            ev.when(ev.SaveCheckpoint, self._no_checkpoints),
+            ev.when(ev.SaveCheckpoint, lambda e: self._save_flag.set()),
         ]
         log.info(
             "Trainer ready on %s: %d train / %d val cameras, %d gaussians, capacity %d, "
@@ -245,9 +264,31 @@ class Trainer:
             n_gaussians=n0,
         ))
 
-    @staticmethod
-    def _no_checkpoints(_event) -> None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP.md Queue 1 item 5)")
+    def resume(self, path: str | Path) -> None:
+        """Continue from a checkpoint: its state, and the plan and data-loader position
+        its `extra` holds (a checkpoint without them keeps this Trainer's)."""
+        self.state, extra = checkpoint.load_checkpoint(path, device=self.device)
+        if "plan_max_instances" in extra:
+            self.plan = dataclasses.replace(self.plan,
+                                            max_instances=int(extra["plan_max_instances"]),
+                                            k_max=int(extra["plan_k_max"]))
+        self.samples_drawn = int(extra.get("samples_drawn", 0))
+        if "bg_rng_state" in extra:
+            self._bg_rng.bit_generator.state = extra["bg_rng_state"]
+        log.info("resumed from %s at iteration %d", path, self.state.iteration)
+
+    def save_checkpoint(self, path: Path, iteration: int) -> None:
+        """The state with no step in flight, the plan and the loader's position."""
+        checkpoint.save_checkpoint(path, self.state, extra={
+            "plan_max_instances": self.plan.max_instances,
+            "plan_k_max": self.plan.k_max,
+            "samples_drawn": self.samples_drawn,
+            "bg_rng_state": self._bg_rng.bit_generator.state,
+        })
+        if self.project is not None:
+            self.project.add_checkpoint(path)
+        log.info("checkpoint saved: %s", path)
+        ev.emit(ev.CheckpointSaved(path=str(path), iteration=iteration))
 
     @staticmethod
     def _state_from_raw(raw: dict, scene_center, capacity: int, sh_degree: int,
@@ -265,6 +306,12 @@ class Trainer:
         return dataclasses.replace(state, **pads)
 
     # ------------------------------------------------------------------ train
+
+    @property
+    def total_iterations(self) -> int:
+        """Base run + appended sparsify phase (trainer.cpp:332-361)."""
+        extra = self.opt.sparsify_steps if self.opt.enable_sparsity else 0
+        return self.opt.iterations + extra
 
     def background_for_step(self, iteration: int) -> np.ndarray:
         bg = np.zeros(3, np.float32)  # base background is black (trainer.cpp:363)
@@ -330,6 +377,7 @@ class Trainer:
                 or j % progress_every == 0
                 or (opt.enable_eval and j in opt.eval_steps)
                 or j in opt.save_steps
+                or (self.checkpoint_every and j % self.checkpoint_every == 0)
                 or j == total
             ):
                 return j - it + 1
@@ -451,23 +499,80 @@ class Trainer:
         self._loss_hist.extend(chk.stats.loss.reshape(-1).tolist())
 
     def _topology_hooks(self, it: int) -> None:
-        """MCMC refine schedule (runs with no steps in flight)."""
+        """Strategy + sparsity schedule (runs with no steps in flight)."""
         opt = self.opt
-        if strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine, opt.refine_every):
-            self.state, info = refine_step(
-                self.state, min_opacity=opt.min_opacity, max_cap=opt.max_cap
-            )
-            log.debug("mcmc refine @%d: %s", it, {k: int(v) for k, v in info.items()})
-            ev.emit(ev.ModelUpdated(iteration=it, n_alive=int(info["n_alive"])))
+        if opt.strategy == "mcmc":
+            if strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine,
+                                         opt.refine_every):
+                self.state, info = refine_step(
+                    self.state, min_opacity=opt.min_opacity, max_cap=opt.max_cap
+                )
+                self._refined(it, "mcmc", info)
+        elif opt.strategy == "default":
+            if strategy_default.is_refining(
+                it, opt.start_refine, opt.stop_refine, opt.refine_every,
+                opt.reset_every, opt.pause_refine_after_reset,
+            ):
+                self.state, info = adc_refine_step(
+                    self.state,
+                    grad_threshold=opt.grad_threshold, grow_scale3d=opt.grow_scale3d,
+                    prune_opacity=opt.prune_opacity, prune_scale3d=opt.prune_scale3d,
+                    reset_every=opt.reset_every, revised_opacity=opt.revised_opacity,
+                )
+                self._refined(it, "adc", info)
+            if it < opt.stop_refine and it % opt.reset_every == 0 and it > 0:
+                self.state = adc_reset_opacity_step(self.state,
+                                                    prune_opacity=opt.prune_opacity)
+                self.refine_log.append(dict(iteration=it, kind="reset_opacity"))
+                log.info("opacity reset @%d", it)
+
+        if opt.enable_sparsity:
+            start, steps = opt.iterations, opt.sparsify_steps
+            if it == start:  # lazy init on phase entry (trainer.cpp:629-634)
+                self.state = admm_init_step(self.state, prune_ratio=opt.prune_ratio)
+                self.refine_log.append(dict(iteration=it, kind="admm_init"))
+                log.info("ADMM sparsity initialized @%d", it)
+            elif sp.should_update(it, start, steps):
+                self.state = admm_update_step(self.state, prune_ratio=opt.prune_ratio)
+                self.refine_log.append(dict(iteration=it, kind="admm_update"))
+            if sp.should_prune(it, start, steps):
+                n_before = int(self.state.splat.n_alive())
+                self.state, n = sparsity_prune_step(self.state, prune_ratio=opt.prune_ratio)
+                self.refine_log.append(dict(iteration=it, kind="sparsity_prune",
+                                            n_before=n_before, n_pruned=int(n)))
+                log.info("sparsity prune @%d: removed %d gaussians", it, int(n))
+
+    def _refined(self, it: int, kind: str, info: dict) -> None:
+        counts = {k: int(v) for k, v in info.items()}
+        self.refine_log.append(dict(iteration=it, kind=kind, **counts))
+        log.debug("%s refine @%d: %s", kind, it, counts)
+        ev.emit(ev.ModelUpdated(iteration=it, n_alive=counts["n_alive"]))
 
     def _needs_topology_hook(self, it: int) -> bool:
         opt = self.opt
-        return strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine,
-                                         opt.refine_every)
+        if opt.strategy == "mcmc" and strategy_mcmc.is_refining(
+            it, opt.start_refine, opt.stop_refine, opt.refine_every
+        ):
+            return True
+        if opt.strategy == "default":
+            if strategy_default.is_refining(
+                it, opt.start_refine, opt.stop_refine, opt.refine_every,
+                opt.reset_every, opt.pause_refine_after_reset,
+            ):
+                return True
+            if it < opt.stop_refine and it % opt.reset_every == 0 and it > 0:
+                return True
+        if opt.enable_sparsity:
+            start, steps = opt.iterations, opt.sparsify_steps
+            if (it == start or sp.should_update(it, start, steps)
+                    or sp.should_prune(it, start, steps)):
+                return True
+        return False
 
     def _next_sample(self, loader):
         t0 = time.perf_counter()
         sample = next(loader)
+        self.samples_drawn += 1
         self.timings["data_wait"] += time.perf_counter() - t0
         return sample
 
@@ -489,15 +594,16 @@ class Trainer:
     def train(self, progress_every: int = 100) -> None:
         opt = self.opt
         loader = InfiniteDataLoader(
-            self.train_dataset, num_workers=min(opt.num_workers, 8), seed=7
+            self.train_dataset, num_workers=min(opt.num_workers, 8), seed=7,
+            skip=self.samples_drawn,
         )
         out_dir = Path(self.params.dataset.output_path or "output")
         out_dir.mkdir(parents=True, exist_ok=True)
-        ev.emit(ev.TrainingStarted(total_iterations=self.opt.iterations))
+        ev.emit(ev.TrainingStarted(total_iterations=self.total_iterations))
         pending: list[PendingStep] = []
         t0 = time.time()
-        it = self.state.iteration
-        total = self.opt.iterations
+        it = self.state.iteration  # > 1 when resumed from a checkpoint
+        total = self.total_iterations
         try:
             while it <= total:
                 it = self._dispatch(loader, it, total, progress_every, pending)
@@ -542,6 +648,15 @@ class Trainer:
                     while self._pause_flag.is_set() and not self._stop_flag.is_set():
                         time.sleep(0.1)
                     ev.emit(ev.TrainingResumed(iteration=it))
+                if self._save_flag.is_set():
+                    self._save_flag.clear()
+                    redo = self._flush_pending(pending)
+                    if redo is not None:
+                        it = redo
+                        continue
+                    t1 = time.perf_counter()
+                    self.save_checkpoint(out_dir / f"checkpoint_{it}.npz", it)
+                    self.timings["save"] += time.perf_counter() - t1
                 if opt.enable_eval and it in opt.eval_steps:
                     redo = self._flush_pending(pending)
                     if redo is not None:
@@ -556,6 +671,14 @@ class Trainer:
                     self.save_ply(path)
                     if self.project is not None:
                         self.project.add_ply(f"iter_{it}", path, iteration=it)
+                    self.timings["save"] += time.perf_counter() - t1
+                if self.checkpoint_every and it % self.checkpoint_every == 0:
+                    redo = self._flush_pending(pending)
+                    if redo is not None:
+                        it = redo
+                        continue
+                    t1 = time.perf_counter()
+                    self.save_checkpoint(out_dir / f"checkpoint_{it}.npz", it)
                     self.timings["save"] += time.perf_counter() - t1
                 it += 1
 
@@ -614,8 +737,10 @@ class Trainer:
             save_images=self.opt.enable_save_eval_images,
         )
         log.info(
-            "eval @%d: PSNR %.3f SSIM %.4f LPIPS n/a (%d imgs, %.1fs)",
-            iteration, result.psnr, result.ssim, result.num_images, result.elapsed_s,
+            "eval @%d: PSNR %.3f SSIM %.4f LPIPS %s (%d imgs, %.1fs)",
+            iteration, result.psnr, result.ssim,
+            f"{result.lpips:.4f}" if result.lpips is not None else "n/a",
+            result.num_images, result.elapsed_s,
         )
         ev.emit(ev.EvaluationCompleted(
             iteration=iteration, psnr=result.psnr, ssim=result.ssim,

@@ -96,6 +96,12 @@ class TrainingFinished:
 
 
 @dataclass
+class CheckpointSaved:
+    path: str
+    iteration: int
+
+
+@dataclass
 class EvaluationCompleted:
     iteration: int
     psnr: float
