@@ -34,6 +34,18 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    a cull, kept by the cull, used, stopping), and times kernels, plain versions and the
    library yardstick with CUDA events;
 6. drives the CLI (`--view` of a 100k-Gaussian PLY written by the port, 3 frames);
+6a. the serving side: `sog`, `save_sog` of the scene (palette 65,536, 10 iterations, the
+   k-means on the card) with its split (Morton, k-means++ init, Lloyd, the three 1-d
+   k-means, WebP encode, zip) and each plane's size, `load_sog` back (planes bit-equal,
+   parameters within their quantization steps or on their codebooks), and `kmeans` /
+   `kmeans_1d` on the card against the CPU at n = 20,000; `view-sog`, the CLI's `--view`
+   of the .sog with `--crop-min/--crop-max` (3 frames), a point-cloud and an SH-degree-4
+   frame through the kernels against the plain versions, 5 train steps at SH degree 4;
+   `viewer`, `viewer.serve` of the scene's PLY on a free loopback port: `/`, `/info`,
+   `/scene` and 12 `/frame`s at 960x540 (RGB, RGB_ED, PC, overlay, a compare split, the
+   crop box on through `/scene_ctl`), each PNG equal to the quantized `render_view` image,
+   with the latency's median and p90 split into render and encode; each with the launch
+   counts set to 0 just before and read just after;
 7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
    the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
    render of a perturbed copy of the scene and one `refine_step`, with every launch count
@@ -81,17 +93,23 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    the two runs' spread); `trainer-components`, a run with the bilateral grid and the
    pose MLP and one with ADMM sparsity (init, one dual update, the prune of
    int(0.6 n_alive)); every run with the launch counts set to 0 just before and read just
-   after: K1-K4 once a step, K1 and K2 once more an eval render;
+   after: K1-K4 once a step, K1 and K2 once more an eval render; `trainer-live`, MCMC for
+   48 iterations with the timelapse of two views every 16, `save_sog` and the live viewer
+   attached while a client thread requests `/frame` and `/status` every 0.2 s and pauses
+   and resumes training: the timelapse PNGs, `splat_final.sog` loaded and rendered,
+   /status iterations rising, K1 and K2 once a step and once more each eval, timelapse and
+   viewer render;
 11. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
    counts; K5 and K6 with their pair counts and ptxas' registers and spills; each kernel's
-   launches in the trainer phases' runs), a `frame`
+   launches in the trainer phases' runs and in the serving phases'), a `frame`
    JSON line (frame ms and per-stage split), a `train` JSON line (step
    ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
    step), a `trainer` JSON line (the capture, it/s with data loading and its split into
    data wait, dispatch, pending checks, hooks, eval and save, the plan history, redos,
    launches, losses, eval PSNR/SSIM of the pinhole run; the same for the GUT run; the CLI
    run's time; the ADC run's refines, LPIPS, checks and times, the resume spread, the
-   component runs) and, last, {"ok": true, "device": {...}}.
+   component runs, the live run), a `serving` JSON line (the sog, view-sog and viewer
+   phases) and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
 it exits non-zero before printing any result. Times are medians over CUDA-event-timed
@@ -148,6 +166,15 @@ TRAINER_VIEWS, TRAINER_SFM = 12, 150_000
 TRAINER_ITERS, TRAINER_GUT_ITERS, TRAINER_CLI_ITERS = 96, 32, 16
 # the ADC preset's run, the resume phase's runs, the bilateral-grid + pose-MLP run
 ADC_ITERS, RESUME_ITERS, COMPONENT_ITERS = 96, 32, 24
+# the serving side: SOG export of the render scene (the Trainer's sog_iterations), the
+# card-against-CPU k-means check, SH-degree-4 train steps, the --view crop box, the web
+# viewer's frames, and the Trainer under the live viewer
+SOG_ITERS = 10
+KMEANS_CHECK_N, KMEANS_CHECK_K = 20_000, 1024
+SH4_STEPS = 5
+CROP_MIN, CROP_MAX = (-2.0, -1.5, 3.0), (2.0, 1.5, 8.0)
+VIEWER_W, VIEWER_H, VIEWER_FRAMES = 960, 540, 12
+LIVE_ITERS, LIVE_TIMELAPSE_EVERY = 48, 16
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -703,7 +730,7 @@ def check_gut_stops(chk, chk_plain, args, kw, label: str) -> dict:
     return want
 
 
-def train_setup(params, focal, dev, cam_params=None):
+def train_setup(params, focal, dev, cam_params=None, sh_degree=3):
     """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
     image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
     (tile 32, chunk 256, bf16 pack). With `cam_params` it is the GUT workload: the same
@@ -723,7 +750,7 @@ def train_setup(params, focal, dev, cam_params=None):
     cam = (np.eye(4, dtype=np.float32), np.zeros(3, np.float32), focal, focal, WIDTH / 2.0,
            HEIGHT / 2.0)
     bg0 = np.zeros(3, np.float32)
-    splat = splat_from_numpy(params, np.ones(n, bool), 3, dev, scene_scale=3.0)
+    splat = splat_from_numpy(params, np.ones(n, bool), sh_degree, dev, scene_scale=3.0)
     ts0 = init_train_state(splat, seed=0)
     probe_plan = RasterPlan(max_instances=1 << 22, k_max=1 << 12, chunk=chunk,
                             tile_size=TILE_T)
@@ -1589,8 +1616,16 @@ def trainer_phases(params, focal, dev, counted) -> dict:
         adc = trainer_adc_phase(root, dev, counted)
         resume = trainer_resume_phase(root, dev, counted)
         components = trainer_components_phase(root, dev, counted)
+        # -- the Trainer under the live viewer, with the timelapse and SOG export
+        live = trainer_live_phase(root, dev, counted, pin["it_per_s_without_eval_and_save"])
+        phase("trainer-live", **{k: live[k] for k in (
+            "iterations", "it_per_s", "it_per_s_without_pause", "it_per_s_loop",
+            "pinhole_it_per_s",
+            "paused_s", "launches", "steps", "timelapse_renders", "viewer_renders",
+            "client_frames", "sog_s", "sog_bytes", "live_render_ms", "live_encode_ms")})
+        torch.cuda.empty_cache()
     return dict(capture=capture, pinhole=pin, gut=gut, cli=cli, adc=adc, resume=resume,
-                components=components)
+                components=components, live=live)
 
 
 def require_launches(launches: dict, t, label: str) -> None:
@@ -1689,14 +1724,21 @@ def adc_card_checks(t, dev) -> dict:
 
     # the refine on the card and on the CPU from the same state, dens_* and eps; at the
     # preset's threshold few Gaussians grow this early in a run, so the check refines at
-    # the 95th percentile of the alive Gaussians' average gradient when that is lower
+    # the 95th percentile of the alive Gaussians' average gradient when that is lower; and
+    # since this capture's Gaussians can all be larger than the preset's duplicate scale
+    # (0.01 of the scene), the check raises that scale to the median of the candidates'
+    # largest scales when it is lower, so that both the duplicate and the split path run
     src = dataclasses.replace(t.state)
     avg = src.dens_grad2d / torch.clamp_min(src.dens_count, 1.0)
     seen = src.splat.alive & (src.dens_count > 0)
     check_thr = min(thr, float(torch.quantile(avg[seen][:1 << 24], 0.95)))
+    cand = seen & (avg > check_thr)
+    max_scale = torch.amax(torch.exp(src.splat.scaling_raw), dim=-1)
+    check_grow = max(t.opt.grow_scale3d,
+                     float(torch.median(max_scale[cand])) / src.splat.scene_scale)
     gen = torch.Generator(device=dev).manual_seed(17)
     eps = torch.randn((2, src.splat.capacity, 3), device=dev, generator=gen)
-    kw = dict(grad_threshold=check_thr, grow_scale3d=t.opt.grow_scale3d,
+    kw = dict(grad_threshold=check_thr, grow_scale3d=check_grow,
               prune_opacity=t.opt.prune_opacity, prune_scale3d=t.opt.prune_scale3d,
               reset_every=t.opt.reset_every, revised_opacity=t.opt.revised_opacity)
     torch.cuda.synchronize()
@@ -1751,7 +1793,8 @@ def adc_card_checks(t, dev) -> dict:
                 candidates_kernel=int((k.dens_grad2d > thr).sum()),
                 candidates_plain=int((p.dens_grad2d > thr).sum()), threshold_flips=flips,
                 p95_candidates=int((p.dens_grad2d > thr95).sum()), p95_threshold_flips=flips95,
-                refine_threshold=check_thr, refine_counts=counts, refine_ms=refine_ms,
+                refine_threshold=check_thr, refine_grow_scale3d=check_grow,
+                refine_counts=counts, refine_ms=refine_ms,
                 split_children_rel_err=split_err)
 
 
@@ -1954,6 +1997,462 @@ def trainer_components_phase(root: Path, dev, counted) -> dict:
     del t
     torch.cuda.empty_cache()
     return res
+
+
+# ======================= the serving side: SOG, crop, point cloud, SH 4, viewer ==========
+
+
+def kmeans_card_check(dev) -> dict:
+    """`kmeans` and `kmeans_1d` on the card against the same functions on the CPU, at
+    n = KMEANS_CHECK_N points of 45 values around 300 centres (noise 0.02), a palette of
+    KMEANS_CHECK_K (and 256 for `kmeans_1d` over the first three values of each point):
+    the k-means++ init bit-equal (its distances are summed in float64 and rounded once);
+    after one Lloyd step the labels equal except where a point's two labels score within
+    1e-5 of each other (relative; `kmeans_1d`: equal, the same sorted edges on both), the
+    centroids rtol 1e-5; after 10 steps the inertia within 1e-4 (relative: the card's
+    atomic adds order differently, so a near-tie can go the other way and the two runs
+    part by a point's share of a centroid now and then). -> the numbers"""
+    import torch
+
+    from tpu_splat_torch.io import sog
+
+    rng = np.random.default_rng(9)
+    centres = rng.normal(0, 0.1, (300, 45)).astype(np.float32)
+    x = (centres[rng.integers(0, 300, KMEANS_CHECK_N)]
+         + rng.normal(0, 0.02, (KMEANS_CHECK_N, 45))).astype(np.float32)
+    v = x[:, :3].T.reshape(-1)
+    k = KMEANS_CHECK_K
+    init_card = sog.kmeans_init(x, k, device=dev).cpu()
+    init_cpu = sog.kmeans_init(x, k, device="cpu")
+    require(torch.equal(init_card, init_cpu), "k-means++ init differs between card and CPU")
+    out = {}
+    for name, fn, data, kk in (("kmeans", sog.kmeans, x, k), ("kmeans_1d", sog.kmeans_1d, v, 256)):
+        pts = data.reshape(len(data), -1)
+        for iters in (1, 10):
+            t0 = time.perf_counter()
+            c_card, l_card = fn(data, kk, iters, device=dev)
+            card_s = time.perf_counter() - t0
+            c_cpu, l_cpu = fn(data, kk, iters, device="cpu")
+            c_card, c_cpu = c_card.reshape(kk, -1), c_cpu.reshape(kk, -1)
+            i_card = float(np.sum((pts - c_card[l_card]).astype(np.float64) ** 2))
+            i_cpu = float(np.sum((pts - c_cpu[l_cpu]).astype(np.float64) ** 2))
+            rel = abs(i_card - i_cpu) / i_cpu
+            differ = int((l_card != l_cpu).sum())
+            if iters == 1:
+                if name == "kmeans":
+                    init = init_cpu.numpy().astype(np.float64)
+                    score = pts.astype(np.float64) @ init.T - 0.5 * np.sum(init ** 2, axis=1)
+                    rows = np.arange(len(pts))
+                    sa, sb = score[rows, l_card], score[rows, l_cpu]
+                    near = np.abs(sa - sb) <= 1e-5 * np.maximum(np.abs(sa), np.abs(sb))
+                else:
+                    near = np.zeros(len(pts), bool)
+                require(not ((l_card != l_cpu) & ~near).any(),
+                        f"{name} labels differ off near-ties after one step: {differ}")
+                require(np.allclose(c_card, c_cpu, rtol=1e-5, atol=1e-6),
+                        f"{name} one-step centroids")
+            else:
+                require(rel <= 1e-4, (f"{name} inertia, card against CPU", i_card, i_cpu))
+            out[f"{name}_iters{iters}"] = dict(inertia_card=i_card, inertia_cpu=i_cpu,
+                                               rel_diff=rel, labels_differing=differ,
+                                               card_s=card_s)
+    return dict(n=KMEANS_CHECK_N, k=k, **out)
+
+
+def sog_phase(params, path: Path, dev) -> dict:
+    """`save_sog` of the render scene on the card (palette 65,536, SOG_ITERS iterations),
+    its split into Morton, k-means++ init, Lloyd, the three 1-d k-means, WebP encode and
+    zip, each plane's size; `load_sog` back: the decoded planes bit-equal to the encoded
+    ones, the means within a 16-bit step of their log range, the packed quaternion
+    components within one 8-bit step (the rebuilt largest within 0.03), the opacity within
+    1/255, scales, sh0 and shN on their codebooks; then `kmeans_card_check`."""
+    from tpu_splat_torch.io import sog
+
+    tm = {}
+    t0 = time.perf_counter()
+    planes, meta = sog.save_sog(path, params, kmeans_iterations=SOG_ITERS, device=dev,
+                                timings=tm)
+    save_s = time.perf_counter() - t0
+    palette = min(64, 2 ** int(np.log2(N_GAUSS / 1024.0))) * 1024  # 65,536 at 1M
+    require(meta["shN"]["palette_size"] == palette and meta["count"] == N_GAUSS, meta["shN"])
+    blobs = sog.read_sog_files(path)
+    t0 = time.perf_counter()
+    back = sog.load_sog(path)
+    load_s = time.perf_counter() - t0
+    decoded = sog.decode_planes(blobs, list(planes))
+    for name, plane in planes.items():
+        require(np.array_equal(decoded[name], plane), f"{name} does not decode to itself")
+
+    order = sog.morton_order(params["means"])
+    span = np.asarray(meta["means"]["maxs"]) - np.asarray(meta["means"]["mins"])
+    mean_err = np.abs(sog.log_transform(back["means"])
+                      - sog.log_transform(params["means"][order])).max(axis=0)
+    require((mean_err <= span / 65535.0 * 1.001 + 1e-6).all(), ("means", mean_err, span))
+    q = params["rotation_raw"][order].astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    big = np.argmax(np.abs(q), axis=1)
+    q *= np.sign(q[np.arange(len(q)), big])[:, None]
+    qerr = np.abs(back["rotation_raw"] - q)
+    step = 2.0 / (255.0 * np.sqrt(2.0))
+    largest = qerr[np.arange(len(q)), big]
+    qerr[np.arange(len(q)), big] = 0.0
+    require(qerr.max() <= step + 1e-6 and largest.max() <= 0.03, (qerr.max(), largest.max()))
+
+    def sigmoid(v):
+        return 1.0 / (1.0 + np.exp(-v.astype(np.float64)))
+
+    op_err = np.abs(sigmoid(back["opacity_raw"]) - sigmoid(params["opacity_raw"][order])).max()
+    require(op_err <= 1.0 / 255.0 + 1e-6, ("opacity", op_err))
+    for key, book in (("scaling_raw", "scales"), ("sh0", "sh0"), ("shN", "shN")):
+        cb = np.asarray(meta[book]["codebook"], np.float32)
+        require(np.isin(back[key], cb).all(), f"{key} off its codebook")
+    out = dict(
+        n=N_GAUSS, palette=meta["shN"]["palette_size"], iterations=SOG_ITERS,
+        seconds=dict(tm, total=save_s), load_s=load_s, file_bytes=path.stat().st_size,
+        plane_bytes={name: len(blobs[name]) for name in planes},
+        plane_shapes={name: list(p.shape[:2]) for name, p in planes.items()},
+        errors=dict(means_log=mean_err.tolist(), means_step=(span / 65535.0).tolist(),
+                    quat=float(qerr.max()), quat_largest=float(largest.max()),
+                    opacity=float(op_err)))
+    out["kmeans_card_vs_cpu"] = kmeans_card_check(dev)
+    return out
+
+
+def serving_frames(state, sh4_state, focal, dev, counted) -> dict:
+    """A point-cloud frame of `state` and an SH-degree-4 frame of `sh4_state` through
+    `render_view`, each through the kernels (K1 and K2 launched once) against the plain
+    versions (image and alpha atol 1e-4, the frame gate)."""
+    import torch
+
+    from tpu_splat_torch.render import render_view
+
+    fov = math.degrees(2 * math.atan(0.5 * WIDTH / focal))
+    w2c = np.eye(4, dtype=np.float32)
+    out = {}
+    for label, st, kw in (("point_cloud", state, dict(point_cloud=True)),
+                          ("sh_degree_4", sh4_state, {})):
+        for fn in counted:
+            fn.launches = 0
+        got = render_view(st, w2c, WIDTH, HEIGHT, fov, device=dev, **kw)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        want = render_view(st, w2c, WIDTH, HEIGHT, fov, device=dev, impl="plain", **kw)
+        torch.cuda.synchronize()
+        img_err, alpha_err = max_err(got.image, want.image), max_err(got.alpha, want.alpha)
+        require(launches["expand_emission"] == 1 and launches["blend_forward"] == 1,
+                (label, launches))
+        require(bool(torch.isfinite(got.image).all()) and img_err <= 1e-4
+                and alpha_err <= 1e-4, (label, img_err, alpha_err))
+        out[label] = dict(image_err=img_err, alpha_err=alpha_err, launches=launches,
+                          mean_alpha=float(got.alpha.mean()))
+    return out
+
+
+def sh4_train_steps(params4, focal, dev, counted) -> dict:
+    """SH4_STEPS `train_step`s of the scene with 24 rest coefficients at active degree 4
+    (`sh_degree_interval` 1, from the iteration after shN's 1000-iteration freeze, so that
+    Adam moves shN): K1-K4 once a step, finite state, the loss finite, and band 4's
+    coefficients moved."""
+    import torch
+
+    from tpu_splat_torch.training.optim import SHN_WARMUP_ITERS
+    from tpu_splat_torch.training.train_step import train_step
+
+    ts, target, cam, bg0, plan, step_kw = train_setup(params4, focal, dev, sh_degree=4)
+    step_kw["opt"] = dataclasses.replace(step_kw["opt"], sh_degree_interval=1)
+    ts = dataclasses.replace(ts, iteration=SHN_WARMUP_ITERS + 1)
+    band4 = ts.splat.shN[:, 15:].clone()
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    losses = []
+    for _ in range(SH4_STEPS):
+        ts, st = train_step(ts, target, *cam, bg0, 0, plan=plan, **step_kw)
+        losses.append(float(st.loss))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    require(all(launches[fn.__name__] == (SH4_STEPS if fn in counted[:4] else 0)
+                for fn in counted), f"SH 4 steps: K1-K4 once a step: {launches}")
+    require(all(math.isfinite(v) for v in losses), "non-finite SH 4 loss")
+    for k, v in ts.splat.params().items():
+        require(bool(torch.isfinite(v).all()), f"non-finite {k} after SH 4 steps")
+    moved = float((ts.splat.shN[:, 15:] - band4).abs().max())
+    require(moved > 0, "band 4 did not move")
+    return dict(steps=SH4_STEPS, launches=launches, losses=losses, band4_moved=moved,
+                plan=dataclasses.asdict(plan))
+
+
+def view_sog_phase(sog_path: Path, params, focal, dev, counted, tmp: Path) -> dict:
+    """The CLI's `--view` of the written .sog with `--crop-min/--crop-max` (3 frames), a
+    point-cloud and an SH-degree-4 frame, and SH 4 train steps."""
+    import torch
+
+    from tpu_splat_torch.cli import main as cli_main
+    from tpu_splat_torch.convert import splat_from_numpy
+    from tpu_splat_torch.render import load_model
+
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(["--view", str(sog_path), "-o", str(tmp / "view_sog"), "--view-frames", "3",
+                   "--crop-min", *map(str, CROP_MIN), "--crop-max", *map(str, CROP_MAX)])
+    cli_s = time.perf_counter() - t0
+    cli_launches = {fn.__name__: fn.launches for fn in counted}
+    pngs = sorted((tmp / "view_sog").glob("frame_*.png"))
+    require(rc == 0 and len(pngs) == 3, (rc, pngs))
+    require(all(cli_launches[k] == 3 for k in ("expand_emission", "blend_forward")),
+            cli_launches)
+    state = load_model(sog_path, dev)
+    require(state.capacity == N_GAUSS and state.max_sh_degree == 3, state.capacity)
+    rng = np.random.default_rng(4)
+    params4 = dict(params, shN=np.concatenate(
+        [params["shN"], rng.normal(0, 0.05, (N_GAUSS, 9, 3)).astype(np.float32)], axis=1))
+    sh4_state = splat_from_numpy(params4, np.ones(N_GAUSS, bool), 4, dev, scene_scale=3.0)
+    frames = serving_frames(state, sh4_state, focal, dev, counted)
+    del state, sh4_state
+    torch.cuda.empty_cache()
+    steps = sh4_train_steps(params4, focal, dev, counted)
+    torch.cuda.empty_cache()
+    return dict(cli=dict(frames=len(pngs), seconds=cli_s, launches=cli_launches,
+                         crop_min=CROP_MIN, crop_max=CROP_MAX),
+                frames=frames, sh4_steps=steps)
+
+
+def _http_get(url: str, timeout: float = 300.0) -> tuple[bytes, str]:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read(), r.headers.get("Content-Type")
+
+
+def _quantiles(values) -> dict:
+    v = sorted(values)
+    return dict(median=statistics.median(v), p90=v[min(len(v) - 1, int(0.9 * len(v)))],
+                n=len(v))
+
+
+def viewer_phase(model: Path, compare: Path, dev, counted) -> dict:
+    """`viewer.serve` of the 1M-Gaussian PLY (and a compare model) on a free loopback
+    port: `/`, `/info`, `/scene`, then VIEWER_FRAMES `/frame`s at VIEWER_W x VIEWER_H (RGB
+    from several angles, RGB_ED, PC, the overlay, the crop box switched on through
+    `/scene_ctl`, a compare split), each PNG decoded by `decode_png` and held equal to the
+    quantized `render_view` image of the same camera; launches counted; the latency's
+    median and p90, split into render and encode; the first frame's PNG encode time and
+    size at zlib levels 0, 1 and 6."""
+    import torch
+
+    from tpu_splat_torch import viewer
+    from tpu_splat_torch.core.geometry import BoundingBox, crop_splat_by_box
+    from tpu_splat_torch.io.image import decode_png, encode_png
+    from tpu_splat_torch.render import render_view
+
+    t0 = time.perf_counter()
+    server = viewer.serve(str(model), port=0, width=VIEWER_W, height=VIEWER_H,
+                          compare_path=str(compare), device=dev, block=False)
+    load_s = time.perf_counter() - t0
+    v = server.viewer
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        page, ctype = _http_get(base + "/")
+        require(ctype == "text/html" and b"/scene_ctl" in page, "viewer page")
+        info = json.loads(_http_get(base + "/info")[0])
+        require(info["n_alive"] == N_GAUSS and info["compare"], info)
+        scene = json.loads(_http_get(base + "/scene")[0])
+        require(scene["nodes"][0]["n"] == N_GAUSS and not scene["crop"]["on"], scene)
+        lo, hi = v.center - 0.25 * v.base_radius, v.center + 0.25 * v.base_radius
+        plan = [("RGB", 0.0, {}), ("RGB", 0.6, {}), ("RGB", 1.2, {}), ("RGB", -0.6, {}),
+                ("RGB_ED", 0.3, {}), ("RGB_ED", 0.9, {}), ("PC", 0.0, {}), ("PC", 0.7, {}),
+                ("RGB", 0.4, dict(overlay=1)), ("RGB", 0.2, dict(split=0.5)),
+                ("crop", 0.0, {}), ("crop", 0.5, {})]  # the crop stays on once switched on
+        require(len(plan) == VIEWER_FRAMES, "frame plan")
+        for fn in counted:
+            fn.launches = 0
+        renders0 = v.renders
+        got, latency = [], []
+        for mode, theta, extra in plan:
+            if mode == "crop" and not v.crop_on:
+                ctl = (f"/scene_ctl?crop=1&cmin={','.join(f'{x:.6f}' for x in lo)}"
+                       f"&cmax={','.join(f'{x:.6f}' for x in hi)}")
+                require(json.loads(_http_get(base + ctl)[0]) == {"ok": True}, "scene_ctl")
+            q = (f"/frame?theta={theta:.4f}&phi=-0.2500&radius=1.0000"
+                 f"&mode={'RGB' if mode == 'crop' else mode}"
+                 + "".join(f"&{k}={val}" for k, val in extra.items()))
+            t0 = time.perf_counter()
+            png, ctype = _http_get(base + q)
+            latency.append((time.perf_counter() - t0) * 1e3)
+            require(ctype == "image/png", ctype)
+            got.append((mode, theta, extra, png))
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        renders = v.renders - renders0
+        require(renders == VIEWER_FRAMES + 1, ("viewer renders", renders))
+        require(all(launches[k] == renders for k in ("expand_emission", "blend_forward")),
+                ("viewer launches", launches, renders))
+        crop_state = crop_splat_by_box(v.nodes[0].state, BoundingBox(
+            np.asarray([float(f"{x:.6f}") for x in lo], np.float32),
+            np.asarray([float(f"{x:.6f}") for x in hi], np.float32)))
+        uncropped = v.nodes[0].state
+        f = 0.5 * VIEWER_W / math.tan(math.radians(60.0) / 2)
+        for mode, theta, extra, png in got:
+            w2c = viewer.orbit_w2c(v.center, v.base_radius, theta, -0.25, 1.0)
+            st = crop_state if mode == "crop" else uncropped
+            out = render_view(st, w2c, VIEWER_W, VIEWER_H, device=dev,
+                              render_mode="RGB_ED" if mode == "RGB_ED" else "RGB",
+                              point_cloud=mode == "PC")
+            img = torch.clamp(out.image, 0, 1).cpu().numpy()
+            if extra.get("overlay"):
+                viewer.draw_world_overlay(img, w2c, f, f, VIEWER_W / 2, VIEWER_H / 2,
+                                          v.center, v.base_radius)
+            if mode == "RGB_ED":
+                d = out.depth.cpu().numpy()
+                dn = (d - d.min()) / max(float(d.max() - d.min()), 1e-9)
+                img = np.concatenate([img[:, :, :VIEWER_W // 2],
+                                      np.repeat(dn[None], 3, 0)[:, :, VIEWER_W // 2:]], axis=2)
+            if "split" in extra:
+                c = int(extra["split"] * VIEWER_W)
+                other = render_view(v.compare, w2c, VIEWER_W, VIEWER_H, device=dev).image
+                other = torch.clamp(other, 0, 1).cpu().numpy()
+                img = np.concatenate([img[:, :, :c], other[:, :, c:]], axis=2)
+                img[:, :, c - 1:c + 1] = 1.0
+            require(np.array_equal(decode_png(png), viewer.quantize(img)),
+                    f"viewer frame {mode} {theta} {extra} differs from render_view")
+        split = list(v.frame_ms)[-VIEWER_FRAMES:]
+        # the PNG's zlib level against its encode time and size, on the first frame
+        rgb = decode_png(got[0][3])
+        levels = {}
+        for level in (0, 1, 6):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                data = encode_png(rgb, level)
+                times.append((time.perf_counter() - t0) * 1e3)
+            levels[level] = dict(encode_ms=statistics.median(times), bytes=len(data))
+    finally:
+        server.shutdown()
+        server.server_close()
+    return dict(width=VIEWER_W, height=VIEWER_H, frames=VIEWER_FRAMES, renders=renders,
+                launches=launches, model_load_s=load_s, png_level=viewer.PNG_LEVEL,
+                png_bytes=_quantiles([len(p) for *_, p in got]),
+                latency_ms=_quantiles(latency),
+                render_ms=_quantiles([s["render_ms"] for s in split]),
+                encode_ms=_quantiles([s["encode_ms"] for s in split]), png_levels=levels)
+
+
+def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dict:
+    """`Trainer` on the capture with MCMC, LIVE_ITERS iterations, the timelapse of two views
+    every LIVE_TIMELAPSE_EVERY iterations, `save_sog`, and the live viewer attached on a
+    free port, while a client thread requests `/frame` and `/status` every 0.2 s and posts
+    pause then resume. Checks: the timelapse PNGs, `splat_final.sog` loads and renders,
+    /status iterations rise, the launches exact with the viewer's renders counted."""
+    import threading
+
+    import torch
+
+    from tpu_splat_torch import viewer
+    from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
+                                             TrainingParameters)
+    from tpu_splat_torch.io.image import decode_png
+    from tpu_splat_torch.render import load_model, render_view
+    from tpu_splat_torch.training.trainer import Trainer
+
+    names = ["view_000.png", "view_005.png"]
+    out = root / "live"
+    opt = dataclasses.replace(OptimizationParameters(), iterations=LIVE_ITERS, max_cap=1_000_000,
+                              scan_steps=8, save_steps=[], num_workers=8, save_sog=True)
+    tp = TrainingParameters(
+        dataset=DatasetConfig(data_path=str(root / "capture"), output_path=str(out),
+                              timelapse_images=names, timelapse_every=LIVE_TIMELAPSE_EVERY),
+        optimization=opt)
+    t = Trainer(tp, device=dev)
+    server = viewer.attach(t, port=0, width=VIEWER_W, height=VIEWER_H)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    stop, log_ = threading.Event(), dict(status=[], frames=0, errors=[], paused_s=0.0)
+
+    def client():
+        try:
+            k = 0
+            while not stop.is_set():
+                s = json.loads(_http_get(base + "/status")[0])
+                log_["status"].append(s)
+                png, ctype = _http_get(base + f"/frame?theta={0.1 * (k % 4):.4f}&phi=-0.2"
+                                              "&radius=1&mode=RGB")
+                require(ctype == "image/png" and decode_png(png).shape == (VIEWER_H, VIEWER_W, 3),
+                        "live frame")
+                log_["frames"] += 1
+                if k == 6:  # pause, look, resume
+                    t0 = time.perf_counter()
+                    _http_get(base + "/control?action=pause")
+                    time.sleep(1.0)
+                    log_["paused_status"] = json.loads(_http_get(base + "/status")[0])
+                    _http_get(base + "/control?action=resume")
+                    log_["paused_s"] = time.perf_counter() - t0
+                k += 1
+                stop.wait(0.2)
+        except Exception as e:  # reported and failed below, with the train loop's result
+            log_["errors"].append(repr(e))
+
+    thread = threading.Thread(target=client, name="live-client", daemon=True)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        t.train(progress_every=8)
+    finally:
+        wall = time.perf_counter() - t0
+        stop.set()
+        thread.join(timeout=120)
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    require(not log_["errors"] and not thread.is_alive(), ("live client", log_["errors"]))
+    steps, evals = t.steps_dispatched, t.eval_renders
+    renders = evals + t.timelapse_renders + t.viewer_renders
+    require(all(launches[k] == steps + renders for k in ("expand_emission", "blend_forward"))
+            and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
+            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
+                                                "segred_prefix")),
+            ("trainer-live launches", launches, steps, evals, t.timelapse_renders,
+             t.viewer_renders))
+    require(len(t._loss_hist) == LIVE_ITERS and all(math.isfinite(v) for v in t._loss_hist),
+            "trainer-live losses")
+    its = [s["iteration"] for s in log_["status"]]
+    require(len(its) >= 3 and max(its) > min(its), ("/status iterations", its))
+    require(log_.get("paused_status", {}).get("paused") is True, log_.get("paused_status"))
+    require(t.viewer_renders >= 1 and t.timelapse_renders == 2 * (LIVE_ITERS
+                                                                 // LIVE_TIMELAPSE_EVERY),
+            (t.viewer_renders, t.timelapse_renders))
+    for name in names:
+        stem = name.rsplit(".", 1)[0]
+        frames = sorted(p.name for p in (out / "timelapse" / stem).iterdir())
+        want = [f"{i:06d}.png" for i in range(LIVE_TIMELAPSE_EVERY, LIVE_ITERS + 1,
+                                              LIVE_TIMELAPSE_EVERY)]
+        require(frames == want, ("timelapse", stem, frames))
+        require(decode_png((out / "timelapse" / stem / want[-1]).read_bytes()).shape
+                == (HEIGHT, WIDTH, 3), "timelapse frame size")
+    model = load_model(out / "splat_final.sog", dev)
+    require(int(model.n_alive()) == int(t.state.splat.n_alive()), "splat_final.sog count")
+    img = render_view(model, np.eye(4, dtype=np.float32), WIDTH, HEIGHT,
+                      math.degrees(2 * math.atan(0.5 * WIDTH / (0.85 * WIDTH))), device=dev).image
+    require(bool(torch.isfinite(img).all()) and float(img.std()) > 0.01, "splat_final.sog frame")
+    iters = len(t._loss_hist)
+    frame_ms = list(server.viewer.frame_ms)
+    # the loop's rate: the wall without the client's pause and without the saves (the final
+    # PLY and the .sog), as `trainer.pinhole`'s it_per_s_without_eval_and_save
+    loop = wall - log_["paused_s"] - t.timings["save"]
+    return dict(iterations=iters, wall_s=wall, paused_s=log_["paused_s"],
+                it_per_s=iters / wall, it_per_s_without_pause=iters / (wall - log_["paused_s"]),
+                it_per_s_loop=iters / loop, pinhole_it_per_s=pinhole_it_per_s,
+                launches=launches, steps=steps,
+                timelapse_renders=t.timelapse_renders, viewer_renders=t.viewer_renders,
+                client_frames=log_["frames"], status_iterations=its,
+                split_s=dict(t.timings), sog_s=dict(t.sog_timings),
+                sog_bytes=(out / "splat_final.sog").stat().st_size,
+                n_alive=int(t.state.splat.n_alive()),
+                live_render_ms=_quantiles([s["render_ms"] for s in frame_ms]),
+                live_encode_ms=_quantiles([s["encode_ms"] for s in frame_ms]))
 
 
 def segred_random_phases(dev) -> dict:
@@ -2277,6 +2776,23 @@ def main() -> int:
         require(all(cli_launches[k] == 3 for k in render_kernels), cli_launches)
     phase("cli", frames=len(pngs), launches=cli_launches)
 
+    # ======================= the serving side =======================
+    # SOG export and import of the scene, --view of the .sog with a crop box, a point-cloud
+    # and an SH-degree-4 frame, SH 4 train steps, the web viewer
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sog_res = sog_phase(params, tmp / "scene.sog", dev)
+        phase("sog", **sog_res)
+        torch.cuda.empty_cache()
+        view_sog = view_sog_phase(tmp / "scene.sog", params, focal, dev, counted, tmp)
+        phase("view-sog", **view_sog)
+        save_splat_ply(tmp / "scene.ply", **params)
+        save_splat_ply(tmp / "compare.ply", **cli_params)
+        viewer_res = viewer_phase(tmp / "scene.ply", tmp / "compare.ply", dev, counted)
+        phase("viewer", **viewer_res)
+        torch.cuda.empty_cache()
+    serving = dict(sog=sog_res, view_sog=view_sog, viewer=viewer_res)
+
 
     # ======================= the training path =======================
     del state, proj, inst, flat, ftab, itab, offs_incl, out
@@ -2490,15 +3006,20 @@ def main() -> int:
     runs = dict(pinhole=trainer["pinhole"], gut=trainer["gut"], adc=trainer["adc"],
                 resumed=trainer["resume"], grid_pose=trainer["components"]["grid_pose"],
                 sparsity=trainer["components"]["sparsity"])
+    serving_runs = dict(view_sog_cli=view_sog["cli"], point_cloud=view_sog["frames"]["point_cloud"],
+                        sh4_frame=view_sog["frames"]["sh_degree_4"], sh4_steps=view_sog["sh4_steps"],
+                        viewer=viewer_res, trainer_live=trainer["live"])
     for entry in kernels:
         fn = wrapper_of[entry["source"].rsplit("/", 1)[1]]
         entry["trainer_launches"] = {k: v["launches"][fn] for k, v in runs.items()}
+        entry["serving_launches"] = {k: v["launches"][fn] for k, v in serving_runs.items()}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"frame": frame}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"gut": gut}), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

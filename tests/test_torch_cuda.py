@@ -544,3 +544,110 @@ def test_checkpoint_round_trips_on_card(tmp_path, caplog):
     with caplog.at_level(logging.INFO):
         on_cpu, _ = checkpoint.load_checkpoint(tmp_path / "c.npz", device="cpu")
     assert "seeded from its JAX key data" in caplog.text and on_cpu.rng.initial_seed() == 4
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_matches_cpu():
+    """`chip_smoke.kmeans_card_check`: the k-means++ init bit-equal; after one Lloyd step
+    the labels equal outside near-ties (top-two scores within 1e-5, relative) and the
+    centroids rtol 1e-5; after 10 steps the inertia within 1e-4 (relative), for `kmeans`
+    and `kmeans_1d`."""
+    _require_cuda()
+    from chip_smoke import kmeans_card_check
+
+    kmeans_card_check(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_viewer_frame_on_card(tmp_path):
+    """A /frame of the viewer served on the card decodes to the quantized render_view
+    image of the same camera, and each frame launched K1 and K2 once."""
+    _require_cuda()
+    import json
+    import urllib.request
+
+    from tpu_splat_torch import viewer
+    from tpu_splat_torch.io.image import decode_png
+    from tpu_splat_torch.io.ply import save_splat_ply
+    from tpu_splat_torch.render import render_view
+
+    rng = np.random.default_rng(10)
+    n = 20_000
+    means = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    save_splat_ply(tmp_path / "m.ply", means, rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+                   rng.normal(0, 0.1, (n, 15, 3)).astype(np.float32),
+                   np.log(rng.uniform(0.01, 0.05, (n, 3))).astype(np.float32),
+                   rng.normal(0, 1, (n, 4)).astype(np.float32),
+                   rng.normal(0, 1, (n, 1)).astype(np.float32))
+    server = viewer.serve(str(tmp_path / "m.ply"), port=0, width=320, height=240,
+                          block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/info", timeout=120) as r:
+            assert json.loads(r.read())["n_alive"] == n
+        v = server.viewer
+        assert v.device.type == "cuda"
+        expand_emission.launches = blend_forward.launches = 0
+        for mode in ("RGB", "PC"):
+            with urllib.request.urlopen(base + f"/frame?theta=0.3&phi=-0.2&radius=1&mode={mode}",
+                                        timeout=120) as r:
+                assert r.headers.get("Content-Type") == "image/png"
+                got = decode_png(r.read())
+            w2c = viewer.orbit_w2c(v.center, v.base_radius, 0.3, -0.2, 1.0)
+            want = render_view(v.scene_state(), w2c, 320, 240, point_cloud=mode == "PC").image
+            np.testing.assert_array_equal(
+                got, viewer.quantize(torch.clamp(want, 0, 1).cpu().numpy()))
+        assert expand_emission.launches == blend_forward.launches == 4
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_webp_decoder_raises_when_it_cannot_build(tmp_path, monkeypatch):
+    """No g++, or a build that fails: decoding raises and names the cause; nothing decodes
+    the file another way (PIL is made unimportable)."""
+    import sys
+
+    from tpu_splat_torch.io import webp
+
+    data = webp.encode_webp_lossless(np.full((3, 5, 4), 7, np.uint8))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setattr(webp, "_lib", None)
+    monkeypatch.setattr(webp, "BUILD_DIR", tmp_path / "build")
+    broken = tmp_path / "vp8l_decode.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(webp, "_SRC", broken)
+    with pytest.raises(RuntimeError, match="building the VP8L decoder failed"):
+        webp.decode_webp_lossless(data)
+    monkeypatch.setattr(webp.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+, not found"):
+        webp.decode_webp_lossless(data)
+    assert webp._lib is None and not list((tmp_path / "build").glob("*.so"))
+
+
+def test_launch_counts_stay_exact_across_threads():
+    """The kernel wrappers count launches from the trainer's thread and the live viewer's
+    HTTP threads at once: `count_launch` loses no update (16 threads, a short switch
+    interval)."""
+    import sys
+    import threading
+
+    from tpu_splat_torch.ops.cuda.build import count_launch
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [count_launch(wrapper) for _ in range(5000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert wrapper.launches == 16 * 5000

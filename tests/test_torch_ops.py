@@ -165,11 +165,14 @@ def test_port_imports_no_jax():
         "from tpu_splat_torch.training import bilateral_grid, checkpoint, lpips, poseopt\n"
         "from tpu_splat_torch.training import sparsity, strategy_default\n"
         "from tpu_splat_torch.io import colmap, image, loader, nvjpeg, ply, transforms\n"
-        "from tpu_splat_torch.core import camera, config, project\n"
+        "from tpu_splat_torch.io import sog, webp\n"
+        "from tpu_splat_torch.core import camera, config, geometry, project\n"
+        "import tpu_splat_torch.viewer\n"
         "from tpu_splat_torch.utils import async_io, events\n"
         "import chip_smoke, profile_render, ab_blend_kernels, ab_gut_kernels\n"
         "import ab_segred_kernels\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'tpu_splat'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'tpu_splat', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -112,7 +112,8 @@ def test_scan_chunks_match_jax(scan_steps, progress_every, eval_on, checkpoint_e
                                   _timelapse_due=lambda j: False)
     jself._needs_topology_hook = lambda j: jax_trainer.Trainer._needs_topology_hook(jself, j)
     jself.total_iterations = jax_trainer.Trainer.total_iterations.fget(jself)
-    pself = types.SimpleNamespace(opt=opt, checkpoint_every=checkpoint_every)
+    pself = types.SimpleNamespace(opt=opt, checkpoint_every=checkpoint_every,
+                                  _timelapse_due=lambda j: False)
     pself._needs_topology_hook = lambda j: trainer.Trainer._needs_topology_hook(pself, j)
     total = trainer.Trainer.total_iterations.fget(pself)
     assert total == jself.total_iterations
@@ -309,15 +310,14 @@ def test_distorted_capture_needs_gut(opencv_dir, tmp_path):
         trainer.Trainer(_small_params(opencv_dir, tmp_path / "x"), device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--sog"], ["--timelapse-images", "a.png"],
-                                   ["--batch-size", "2"], []])
+@pytest.mark.parametrize("flags", [["--batch-size", "2"], ["--mesh-data", "2"],
+                                   ["--mesh-gauss", "2"], ["--batch-size", "4"]])
 def test_unported_flags_raise(colmap_dir, tmp_path, flags):
-    argv = ["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--device", "cpu"] + flags
-    if flags:
-        argv.append("--headless")
-    match = "viewer" if not flags else "not ported yet"
-    with pytest.raises(NotImplementedError, match=match):
+    argv = ["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--device", "cpu",
+            "--headless"] + flags
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(argv)
+    assert not (tmp_path / "o").exists()
 
 
 def test_no_card_and_no_device_raises(colmap_dir, tmp_path, monkeypatch):
@@ -345,6 +345,8 @@ PORTED_FLAGS = {
     "enable-sparsity": ["--enable-sparsity", "-i", "6", "--sparsify-steps", "6"],
     "eval-lpips": ["--eval", "--test-every", "3"],
     "gut-pose-opt": ["--gut", "--pose-opt", "direct"],
+    "sh-degree-4": ["--sh-degree", "4", "--sh-degree-interval", "2", "--eval", "--test-every",
+                    "3"],
 }
 
 
@@ -439,6 +441,10 @@ def test_ported_flags_train(case, colmap_dir, tmp_path, monkeypatch):
         assert [r["iteration"] for r in t.refine_log if r["kind"] == "admm_init"] == [6]
         assert prune["n_pruned"] == int(0.6 * prune["n_before"]) > 0
         assert int(ts.splat.n_alive()) == prune["n_before"] - prune["n_pruned"]
+    elif case == "sh-degree-4":  # degree 4 active from iteration 8, the eval at 12 included
+        assert ts.splat.max_sh_degree == 4 and ts.splat.shN.shape[1] == 24
+        assert trainer.active_sh_degree(12, 2, 4) == 4 and len(t.evaluator.results) == 1
+        assert load_splat_ply(out / "splat_final.ply")["shN"].shape[1] == 24
     elif case == "eval-lpips":
         with open(out / "metrics.csv") as f:
             (row,) = list(csv.DictReader(f))

@@ -1,20 +1,22 @@
 """Command-line interface of the port (port of `tpu_splat/cli.py`): training and `--view`.
 
-    python -m tpu_splat_torch -d DATA -o OUT --headless [--eval] [--gut] [--device cpu]
+    python -m tpu_splat_torch -d DATA -o OUT [--headless] [--eval] [--gut] [--device cpu]
         [--strategy default | --config parameter/default_optimization_params.json]
         [--bilateral-grid] [--pose-opt direct|mlp] [--enable-sparsity]
-        [--checkpoint-every N] [--resume OUT/checkpoint_N.npz]
-    python -m tpu_splat_torch --view model.ply -o renders [--device cpu]
+        [--checkpoint-every N] [--resume OUT/checkpoint_N.npz] [--sog]
+        [--timelapse-images NAME ... --timelapse-every N] [--port P --viewer-host H]
+    python -m tpu_splat_torch --view model.ply|model.sog -o renders
+        [--crop-min X Y Z --crop-max X Y Z] [--device cpu]
 
 trains a COLMAP or Blender capture (`run_headless` -> `Trainer.train`), or renders an
-orbit turntable of a Gaussian PLY to PNGs, on the CUDA card or, when asked, on the CPU.
-Config precedence is the JAX CLI's: struct defaults <- `--config` JSON <- CLI flags; the
-resolved parameters are saved to the output directory.
+orbit turntable of a Gaussian PLY or a SOG model to PNGs, on the CUDA card or, when asked,
+on the CPU. Training without `--headless` attaches the live web viewer (`viewer.py::
+attach`, on loopback port `--port` unless `--viewer-host` says otherwise). Config
+precedence is the JAX CLI's: struct defaults <- `--config` JSON <- CLI flags; the resolved
+parameters are saved to the output directory.
 
-Flags whose code is not ported yet stay in the parser and raise NotImplementedError
-(`training/trainer.py::check_ported`: `--sog`, `--timelapse-images`, `--batch-size > 1`,
-`--mesh-*`); so does training without `--headless`, which attaches the live viewer in the
-JAX package.
+`--batch-size > 1` and `--mesh-*` stay in the parser and raise NotImplementedError
+(`training/trainer.py::check_ported`): their code is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="3D Gaussian Splatting trainer/renderer (PyTorch/CUDA port of tpu_splat)",
     )
     # modes
-    p.add_argument("-v", "--view", metavar="PLY", help="render an orbit of a model file")
+    p.add_argument("-v", "--view", metavar="PLY_OR_SOG", help="render an orbit of a model file")
     p.add_argument("-d", "--data-path", help="path to training data (COLMAP or transforms.json)")
     p.add_argument("-o", "--output-path", help="output directory")
     p.add_argument("--proj_path", help="project file path (.ls)")
@@ -103,9 +105,17 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["trace", "debug", "info", "warn", "error"])
     p.add_argument("--log-file")
     # view-mode options
+    p.add_argument("--crop-min", type=float, nargs=3, metavar=("X", "Y", "Z"),
+                   help="crop box min bounds (world units) for --view")
+    p.add_argument("--crop-max", type=float, nargs=3, metavar=("X", "Y", "Z"))
     p.add_argument("--view-frames", type=int, default=60)
     p.add_argument("--view-width", type=int, default=1280)
     p.add_argument("--view-height", type=int, default=720)
+    # live training viewer (reference: GUI attach, application.cpp; here a web view)
+    p.add_argument("--port", type=int, default=8080, help="live viewer port (non-headless)")
+    p.add_argument("--viewer-host", default="127.0.0.1",
+                   help="live viewer bind address (loopback by default: /control can "
+                        "pause/stop training; 0.0.0.0 exposes it)")
     return p
 
 
@@ -152,10 +162,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.view:
         from .render import render_orbit
 
+        crop = None
+        if args.crop_min and args.crop_max:
+            import numpy as np
+
+            from .core.geometry import BoundingBox
+
+            crop = BoundingBox(np.asarray(args.crop_min), np.asarray(args.crop_max))
         render_orbit(
             args.view, Path(args.output_path or "renders"), n_frames=args.view_frames,
             width=args.view_width, height=args.view_height,
-            render_mode=args.render_mode or "RGB", device=args.device,
+            render_mode=args.render_mode or "RGB", crop_box=crop, device=args.device,
         )
         return 0
 
@@ -175,10 +192,6 @@ def run_headless(args: argparse.Namespace) -> int:
 
     params = params_from_args(args)
     check_ported(params)
-    if not args.headless:
-        raise NotImplementedError(
-            "the live training viewer is not ported yet (ROADMAP.md Queue 1 item 8): "
-            "pass --headless")
     device = resolve_device(args.device)  # no card and no --device cpu: raise before I/O
 
     out_dir = Path(params.dataset.output_path or "output")
@@ -201,7 +214,19 @@ def run_headless(args: argparse.Namespace) -> int:
             trainer.resume(args.resume)
         trainer.checkpoint_every = args.checkpoint_every
         trainer.project = project
-        trainer.train()
+        server = None
+        if not args.headless:
+            # training under a live web viewer (the reference's GUI-attached training,
+            # src/visualizer/training_manager.cpp:121,343); controls ride the event bus
+            from .viewer import attach
+
+            server = attach(trainer, port=args.port, host=args.viewer_host)
+        try:
+            trainer.train()
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
         final = out_dir / "splat_final.ply"
         if final.exists():
             project.add_ply("final", final, iteration=trainer.opt.iterations)

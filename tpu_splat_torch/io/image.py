@@ -32,15 +32,15 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
 
 
-def encode_png(rgb: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> PNG file bytes."""
+def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
+    """uint8 [H, W, 3] -> PNG file bytes; `level` is zlib's (0-9: speed against size)."""
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} {rgb.shape}")
     h, w, _ = rgb.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB, no interlace
     return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
 
 
 def save_image(path: str, img_chw: np.ndarray) -> None:

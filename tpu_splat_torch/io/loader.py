@@ -1,8 +1,8 @@
 """Loader facade: format detection + dispatch (port of `tpu_splat/io/loader.py`).
 
-Detects COLMAP / Blender-transforms / Gaussian-PLY / point-cloud-PLY and returns either a
-splat parameter dict (a model to view) or a LoadedScene (cameras + SfM points to train
-from). SOG models are not ported yet (ROADMAP.md Queue 1 item 8): they raise.
+Detects COLMAP / Blender-transforms / Gaussian-PLY / point-cloud-PLY / SOG and returns
+either a splat parameter dict (a model to view) or a LoadedScene (cameras + SfM points to
+train from).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.camera import Camera
-from . import colmap, ply, transforms
+from . import colmap, ply, sog, transforms
 
 
 @dataclass
@@ -49,8 +49,7 @@ def load(path: str | Path, images_folder: str = "images", rc: bool = False) -> L
         return LoadResult(scene=scene, loader_used="ply_pointcloud")
 
     if path.is_file() and path.suffix.lower() == ".sog" or (path / "meta.json").exists():
-        raise NotImplementedError(
-            f"{path}: SOG models are not ported yet (ROADMAP.md Queue 1 item 8)")
+        return LoadResult(splat_params=sog.load_sog(path), loader_used="sog")
 
     if colmap.is_colmap_dataset(path):
         cameras, pts, cols, center = colmap.load_colmap(path, images_folder, rc)

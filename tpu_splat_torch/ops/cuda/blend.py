@@ -40,7 +40,7 @@ import math
 import torch
 
 from ..projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA, TRANSMITTANCE_THRESHOLD
-from .build import check, kernel, require_cuda
+from .build import check, count_launch, kernel, require_cuda
 
 # feature rows of the flat instance table (f32 layout of the JAX package's F_* rows)
 F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_D = range(10)
@@ -256,7 +256,7 @@ def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     check(err, "blend_fwd")
-    blend_forward.launches += 1
+    count_launch(blend_forward)
     return out, chk
 
 
@@ -359,7 +359,7 @@ def blend_backward(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     check(err, "blend_bwd")
-    blend_backward.launches += 1
+    count_launch(blend_backward)
     return gflat
 
 

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -47,6 +48,10 @@ ENTRY_POINTS = {
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+# one build and load at a time: the live viewer renders from HTTP threads while the
+# trainer's thread may be loading the same library (the temporary file is per process)
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -116,14 +121,22 @@ def build_log(name: str) -> str:
 
 def kernel(name: str):
     """The ctypes function of kernel library `name`, built and loaded at first use."""
-    if name not in _loaded:
-        _finish_build(name, _start_build(name))
-        symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+    with _build_lock:
+        if name not in _loaded:
+            _finish_build(name, _start_build(name))
+            symbol, argtypes = ENTRY_POINTS[name]
+            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return _loaded[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` (a kernel wrapper's launch count), under a lock: the
+    wrappers run from the trainer's thread and from the live viewer's at once."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -45,7 +45,7 @@ import torch
 from ..projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA, TRANSMITTANCE_THRESHOLD
 from .blend import (CHUNKS, SUB_H, SUB_W, TILE_SIZES, _check_backward_args, _tile_batches,
                     _to_f32, composite_chunk)
-from .build import check, kernel, require_cuda
+from .build import check, count_launch, kernel, require_cuda
 
 (G_M00, G_M01, G_M02, G_M10, G_M11, G_M12, G_M20, G_M21, G_M22,
  G_GX, G_GY, G_GZ, G_OP, G_R, G_G, G_B, G_D) = range(17)
@@ -303,7 +303,7 @@ def gut_blend_forward(flat, rays, seg_start, tile_count, *, n_tiles: int, tile_s
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     check(err, "gut_fwd")
-    gut_blend_forward.launches += 1
+    count_launch(gut_blend_forward)
     return out, chk
 
 
@@ -408,7 +408,7 @@ def gut_blend_backward(flat, rays, seg_start, tile_count, chk, out, gout, *, n_t
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     check(err, "gut_bwd")
-    gut_blend_backward.launches += 1
+    count_launch(gut_blend_backward)
     return gflat
 
 

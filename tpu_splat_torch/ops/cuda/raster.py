@@ -32,7 +32,7 @@ import torch
 
 from ..projection import Projected, will_contribute
 from .blend import NFEAT
-from .build import check, kernel, require_cuda
+from .build import check, count_launch, kernel, require_cuda
 
 # K1 float rows (per-Gaussian table `ftab` [7, N] and per-slot output `frows` [7, M])
 R_MX, R_MY, R_CA, R_CB, R_CC, R_PTH, R_DEPTH = range(7)
@@ -96,7 +96,7 @@ def expand_emission(ftab, itab, offs_incl, max_instances: int):
         torch.cuda.current_stream(ftab.device).cuda_stream,
     )
     check(err, "expand")
-    expand_emission.launches += 1
+    count_launch(expand_emission)
     return frows, irows
 
 
@@ -345,7 +345,7 @@ def segsum_emission(rows, emis_start, emis_end, cols=None):
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     check(err, "segsum")
-    segsum_emission.launches += 1
+    count_launch(segsum_emission)
     return out
 
 
@@ -461,7 +461,7 @@ def segred_prefix(rows, rank, cols=None):
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     check(err, "segprefix")
-    segred_prefix.launches += 1
+    count_launch(segred_prefix)
     return out
 
 

@@ -1,8 +1,13 @@
-"""Spherical-harmonics color evaluation, degree <= 3 (port of `tpu_splat/ops/sh.py`).
+"""Spherical-harmonics color evaluation, degree <= 4 (port of `tpu_splat/ops/sh.py`).
 
-Matches `convert_sh_to_color` (fastgs/rasterization/include/kernel_utils.cuh:15-39): view
-direction = normalize(mean - cam_pos), color = 0.5 + sum over the active bands. Bands
-above the active degree are masked, not sliced, as in the JAX version.
+Degrees <= 3 match `convert_sh_to_color` (fastgs/rasterization/include/kernel_utils.cuh:
+15-39); degree 4 is the Sloan fast basis (gsplat/SphericalHarmonicsCUDA.cu:76-103), term by
+term as in the JAX version. View direction = normalize(mean - cam_pos), color = 0.5 + sum
+over the active bands. A band is present when `shN` holds its coefficients (3, 8, 15, 24
+rest coefficients for degrees 1-4) and counts when the active degree reaches it. JAX
+multiplies a band above the active degree by 0.0; here the degree is a host int, so that
+band is not added at all, which gives the same sum and a zero gradient for its
+coefficients (the bands are finite: the direction is a safe normalize).
 """
 
 from __future__ import annotations
@@ -19,14 +24,12 @@ SH_C3 = (0.59004358992664352, 2.8906114426405538, 0.45704579946446572,
 
 def sh_to_color(
     sh0: torch.Tensor,  # [N, 1, 3]
-    shN: torch.Tensor,  # [N, K-1, 3] (K-1 >= 15 for degree 3; extra bands ignored)
+    shN: torch.Tensor,  # [N, K-1, 3] (K-1 >= 15 for degree 3, >= 24 for degree 4)
     dirs: torch.Tensor,  # [N, 3] unnormalized (mean - cam_pos)
     active_sh_degree: int,
 ) -> torch.Tensor:
     """RGB [N, 3] = 0.5 + SH(dir); NOT clamped here — the blend clamps >= 0."""
     deg = int(active_sh_degree)
-    if deg > 3 and shN.shape[1] >= 24:
-        raise NotImplementedError("SH degree 4 is not ported; render with degree <= 3")
     # Safe normalize: dirs can be exactly 0 for dead/degenerate slots
     norm_sq = torch.sum(dirs * dirs, dim=-1, keepdim=True)
     d = dirs * torch.rsqrt(torch.clamp_min(norm_sq, 1e-24))
@@ -61,4 +64,30 @@ def sh_to_color(
             + (SH_C3[0] * x * (-xx + 3.0 * yy)) * c[:, 14]
         )
         result = result + b3
+
+    if deg >= 4 and c.shape[1] >= 24:
+        # degree 4 (Sloan fast basis, gsplat/SphericalHarmonicsCUDA.cu:76-103)
+        fc1 = xx - yy
+        fs1 = 2.0 * xy
+        fc2 = x * fc1 - y * fs1
+        fs2 = x * fs1 + y * fc1
+        fc3 = x * fc2 - y * fs2
+        fs3 = x * fs2 + y * fc2
+        tmp0d = z * (-4.683325804901025 * zz + 2.007139630671868)
+        tmp1c = 3.31161143515146 * zz - 0.47308734787878
+        tmp2b = -1.770130769779931 * z
+        psh6 = 0.9461746957575601 * zz - 0.3153915652525201
+        psh12 = z * (1.865881662950577 * zz - 1.119528997770346)
+        b4 = (
+            (0.6258357354491763 * fs3) * c[:, 15]
+            + (tmp2b * fs2) * c[:, 16]
+            + (tmp1c * fs1) * c[:, 17]
+            + (tmp0d * y) * c[:, 18]
+            + (1.984313483298443 * z * psh12 - 1.006230589874905 * psh6) * c[:, 19]
+            + (tmp0d * x) * c[:, 20]
+            + (tmp1c * fc1) * c[:, 21]
+            + (tmp2b * fc2) * c[:, 22]
+            + (0.6258357354491763 * fc3) * c[:, 23]
+        )
+        result = result + b4
     return result

@@ -1,7 +1,8 @@
 """Offline rendering of a trained model — the serving path (port of `tpu_splat/render.py`).
 
-`render_orbit` loads a Gaussian PLY, places a turntable of cameras around its centroid
-and writes one PNG per frame; `render_view` renders one camera through `rasterize`.
+`render_orbit` loads a Gaussian PLY or a SOG model, optionally crops it to a box, places a
+turntable of cameras around its centroid and writes one PNG per frame; `render_view`
+renders one camera through `rasterize`, optionally as a point cloud.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .convert import splat_from_numpy
+from .core.geometry import BoundingBox, crop_splat_by_box
 from .core.splat import SplatState
 from .device import resolve_device
 from .io.image import save_image
@@ -25,11 +27,12 @@ log = get_logger(__name__)
 
 
 def load_model(path: str | Path, device: str | torch.device | None = None) -> SplatState:
-    """Load a Gaussian PLY into a SplatState on `device` (capacity = n, all alive)."""
+    """Load a Gaussian PLY or a SOG model (`.sog` zip or a directory with meta.json) into
+    a SplatState on `device` (capacity = n, all alive)."""
     dev = resolve_device(device)
     raw = load(path).splat_params
     if raw is None:
-        raise ValueError(f"{path} is not a Gaussian model file (a PLY with splat fields)")
+        raise ValueError(f"{path} is not a renderable model (PLY/SOG)")
     n = raw["means"].shape[0]
     k_rest = raw["shN"].shape[1]
     sh_degree = int(round(math.sqrt(k_rest + 1))) - 1 if k_rest else 0
@@ -63,17 +66,32 @@ def render_view(
     bg: np.ndarray | None = None,
     render_mode: str = "RGB",
     sh_degree: Optional[int] = None,
+    point_cloud: bool = False,
     device: str | torch.device | None = None,
     impl: str = "kernel",
 ) -> RenderOutput:
-    """Render one view of `state` on `device` (the CUDA card when None)."""
+    """Render one view of `state` on `device` (the CUDA card when None).
+
+    `point_cloud`: the point-cloud debug mode (reference viewer: point rendering toggle,
+    include/rendering/rendering.hpp:42-57): every splat is drawn as a small opaque dot,
+    its scales set to log(0.004 * extent + 1e-9) with the extent the RMS distance of the
+    alive means from their centroid, its opacity logit to 8.0 (JAX render.py:84-96)."""
     dev = resolve_device(device)
     if state.device != dev:
         state = state.to(dev)
     f = 0.5 * width / math.tan(math.radians(fov_deg) / 2)
     cam_pos = (-w2c[:3, :3].T @ w2c[:3, 3]).astype(np.float32)
+    scaling_raw, opacity_raw = state.scaling_raw, state.opacity_raw
+    if point_cloud:
+        alive_f = state.alive[:, None].float()
+        n_alive = torch.clamp_min(torch.sum(alive_f), 1.0)
+        center = torch.sum(state.means * alive_f, 0) / n_alive
+        extent = torch.sqrt(
+            torch.sum(torch.sum((state.means - center) ** 2, -1) * alive_f[:, 0]) / n_alive)
+        scaling_raw = torch.log(0.004 * extent + 1e-9).expand_as(state.scaling_raw).clone()
+        opacity_raw = torch.full_like(state.opacity_raw, 8.0)
     return rasterize(
-        state.means, state.scaling_raw, state.rotation_raw, state.opacity_raw,
+        state.means, scaling_raw, state.rotation_raw, opacity_raw,
         state.sh0, state.shN, state.alive,
         w2c, cam_pos, f, f, width / 2.0, height / 2.0,
         state.max_sh_degree if sh_degree is None else sh_degree,
@@ -97,11 +115,15 @@ def render_orbit(
     elevation_deg: float = -15.0,
     radius_scale: float = 1.0,
     render_mode: str = "RGB",
+    crop_box: BoundingBox | None = None,  # the viewer crop (rasterizer.cpp:84-136)
     device: str | torch.device | None = None,
 ) -> list[Path]:
-    """Turntable render around the model's centroid; one PNG per frame."""
+    """Turntable render around the model's centroid; one PNG per frame. With `crop_box`,
+    only the Gaussians inside the box stay alive, and the orbit centres on them."""
     dev = resolve_device(device)
     state = load_model(model_path, dev)
+    if crop_box is not None:
+        state = crop_splat_by_box(state, crop_box)
     means = state.means[state.alive].cpu().numpy()
     center = means.mean(axis=0)
     radius = float(np.percentile(np.linalg.norm(means - center, axis=1), 90)) * 2.0 * radius_scale

@@ -29,8 +29,17 @@ from one (`resume`) starts at the state's iteration with that plan, and its load
 continues the sample stream where the saved run's stood (the JAX Trainer restarts it), so
 with one loader worker a resumed run repeats the uninterrupted one bit for bit.
 
-Still to port, and raising NotImplementedError when asked for (`check_ported`): SOG export
-and the timelapse (ROADMAP.md Queue 1 item 8), batched multi-device steps (item 9).
+At the end of `train` the splat is written as `splat_final.ply` and, with `save_sog`, as
+`splat_final.sog` (k-means on the Trainer's device). The timelapse renders the watched
+training views every `timelapse_every` iterations to `timelapse/<stem>/<it:06d>.png` (PNG
+through the port's writer, where the JAX package writes JPEG through PIL). Every render
+the Trainer's steps do not make is counted, so the kernels' launch counts can be held
+exactly against `steps_dispatched`: `eval_renders`, `timelapse_renders`, and
+`viewer_renders`, which the live viewer (`viewer.py::attach`) adds to from its HTTP
+threads.
+
+Still to port, and raising NotImplementedError when asked for (`check_ported`): batched
+multi-device steps (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from ..core.config import TrainingParameters
 from ..core.splat import SplatState, init_from_pointcloud, init_random
 from ..device import resolve_device
+from ..io.image import save_image
 from ..io.loader import LoadResult, load
 from ..io.ply import load_splat_ply, save_splat_ply
 from ..ops.cameras import CameraParams
@@ -70,7 +80,8 @@ from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_s
 log = get_logger(__name__)
 
 # the split of `Trainer.train`'s wall time (seconds), in `Trainer.timings`
-TIMING_KEYS = ("data_wait", "dispatch", "pending_checks", "hooks", "eval", "save")
+TIMING_KEYS = ("data_wait", "dispatch", "pending_checks", "hooks", "eval", "timelapse",
+               "save")
 
 
 def _next_pow2(x: int) -> int:
@@ -118,16 +129,11 @@ def _inv_weight_piecewise(step: int, max_steps: int) -> float:
 
 def check_ported(params: TrainingParameters) -> None:
     """Raise NotImplementedError for a setting whose code is not ported yet."""
-    opt, ds = params.optimization, params.dataset
-    for asked, what, item in (
-        (opt.save_sog, "SOG export", 8),
-        (bool(ds.timelapse_images), "the timelapse", 8),
-        (opt.batch_size > 1 or opt.mesh_data > 1 or opt.mesh_gauss > 1,
-         "batched multi-device steps (--batch-size, --mesh-*)", 9),
-    ):
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+    opt = params.optimization
+    if opt.batch_size > 1 or opt.mesh_data > 1 or opt.mesh_gauss > 1:
+        raise NotImplementedError(
+            "batched multi-device steps (--batch-size, --mesh-*) are not ported yet "
+            "(ROADMAP.md Queue 1 item 9)")
 
 
 @dataclass
@@ -242,7 +248,11 @@ class Trainer:
         self.n_redo = 0
         self.steps_dispatched = 0
         self.eval_renders = 0
+        self.timelapse_renders = 0
+        self.viewer_renders = 0  # the live viewer's frames (viewer.py), from its threads
+        self._live_rate: float | None = None  # it/s at the last progress report
         self.timings = dict.fromkeys(TIMING_KEYS, 0.0)
+        self.sog_timings: dict[str, float] = {}  # save_sog's split, when --sog
         # control flags (reference: pause/save/stop atomics, trainer.cpp:427-472),
         # driven by cmd::* events so a front-end thread can steer training
         self._stop_flag = threading.Event()
@@ -375,6 +385,7 @@ class Trainer:
             if (
                 self._needs_topology_hook(j)
                 or j % progress_every == 0
+                or self._timelapse_due(j)
                 or (opt.enable_eval and j in opt.eval_steps)
                 or j in opt.save_steps
                 or (self.checkpoint_every and j % self.checkpoint_every == 0)
@@ -630,6 +641,7 @@ class Trainer:
 
                 if it % progress_every == 0 and self._loss_hist:
                     rate = it / (time.time() - t0)
+                    self._live_rate = rate  # the live viewer's /status
                     n_alive = int(self.state.splat.n_alive())
                     log.info(
                         "iter %d/%d loss %.4f alive %d %.2f it/s",
@@ -639,6 +651,14 @@ class Trainer:
                         iteration=it, total_iterations=total,
                         loss=self._loss_hist[-1], n_alive=n_alive, iters_per_s=rate,
                     ))
+                if self._timelapse_due(it):
+                    redo = self._flush_pending(pending)
+                    if redo is not None:
+                        it = redo
+                        continue
+                    t1 = time.perf_counter()
+                    self._render_timelapse(it, out_dir)
+                    self.timings["timelapse"] += time.perf_counter() - t1
                 if self._stop_flag.is_set():
                     log.info("stop requested at iter %d", it)
                     ev.emit(ev.TrainingStopped(iteration=it))
@@ -689,6 +709,14 @@ class Trainer:
             self.save_ply(out_dir / "splat_final.ply")
             self.timings["save"] += time.perf_counter() - t1
             ev.emit(ev.TrainingFinished(iteration=it - 1))
+            if opt.save_sog:
+                from ..io.sog import save_sog
+
+                t1 = time.perf_counter()
+                save_sog(out_dir / "splat_final.sog", self._alive_arrays(),
+                         kmeans_iterations=opt.sog_iterations, device=self.device,
+                         timings=self.sog_timings)
+                self.timings["save"] += time.perf_counter() - t1
             if opt.enable_eval:
                 self.evaluator.save_report()
         finally:
@@ -699,8 +727,13 @@ class Trainer:
 
     # ------------------------------------------------------------- eval/save
 
-    @torch.no_grad()
     def render_camera(self, sample) -> torch.Tensor:
+        """An eval render of `sample`'s camera (counted in `eval_renders`)."""
+        self.eval_renders += 1
+        return self._render_sample(sample)
+
+    @torch.no_grad()
+    def _render_sample(self, sample) -> torch.Tensor:
         cam = sample.camera
         splat = self.state.splat
         sh_deg = active_sh_degree(self.state.iteration, self.opt.sh_degree_interval,
@@ -712,7 +745,6 @@ class Trainer:
             sample.fx, sample.fy, sample.cx, sample.cy,
             sh_deg, torch.zeros(3, device=self.device),
         )
-        self.eval_renders += 1
         if self.step_cfg.gut:
             cfg, dist = self._gut_cfg_for(cam)
             out = rasterize_gut(
@@ -747,6 +779,27 @@ class Trainer:
             lpips=result.lpips, num_images=result.num_images,
         ))
         return result
+
+    # -------------------------------------------------------------- timelapse
+
+    def _timelapse_due(self, it: int) -> bool:
+        ds = self.params.dataset
+        return bool(ds.timelapse_images) and ds.timelapse_every > 0 and \
+            it % ds.timelapse_every == 0
+
+    def _render_timelapse(self, it: int, out_dir: Path) -> None:
+        """Render the watched training views (trainer.cpp:812-846) to
+        `timelapse/<image stem>/<it:06d>.png`; the PNG writes run on the artifact writer."""
+        wanted = set(self.params.dataset.timelapse_images)
+        for idx, cam in enumerate(self.train_cams):
+            if cam.image_name not in wanted and Path(cam.image_name).stem not in wanted:
+                continue
+            sample = self.train_dataset.get(idx)
+            self.timelapse_renders += 1
+            img = torch.clamp(self._render_sample(sample), 0, 1).cpu().numpy()
+            d = out_dir / "timelapse" / Path(cam.image_name).stem
+            d.mkdir(parents=True, exist_ok=True)
+            writer().submit(save_image, str(d / f"{it:06d}.png"), img)
 
     def _alive_arrays(self) -> dict:
         splat = self.state.splat

@@ -187,3 +187,12 @@ class DatasetLoadCompleted:
 class EvaluationStarted:
     iteration: int
     num_images: int
+
+
+@dataclass
+class FrameRendered:
+    """A live-viewer frame (viewer.py::TrainingViewerState.frame)."""
+
+    width: int
+    height: int
+    render_ms: float
