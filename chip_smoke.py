@@ -99,6 +99,23 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    and resumes training: the timelapse PNGs, `splat_final.sog` loaded and rendered,
    /status iterations rising, K1 and K2 once a step and once more each eval, timelapse and
    viewer render;
+10a. the batched, multi-device path: `k2k3-window`, K2 (both layouts) and K3 with a
+   tile-row offset (tile_y0 0, 3, 17) against their plain versions at (tile 16, chunk 128)
+   and (tile 32, chunk 256), and the render frame as 2 and as 4 windows of tile rows
+   (`parallel/raster_mc.py::_window_proj` -> `build_sorted_instances(tile_y0)` -> K2)
+   stacked against the whole frame at atol 1e-5; `batched-step`, the batched step in a
+   world of one process (`parallel/step.py`, a 1x1 mesh) on the scene in 2^20 slots, 4
+   distinct cameras a step, tile 32, chunk 256, bf16 pack, a gather budget below the
+   capacity (so `compact_visible` runs): its gradients against the mean of the 4
+   single-camera steps' (within 1e-5 of each group's largest), K1-K4 4 times a step, the
+   step's ms and cameras/s; `batched-gut-step` (after the GUT phases), the same step
+   through the GUT blend (radial k1 = 0.05 handed over per camera, K5/K6 on the windows'
+   world rays): its gradients against the plain versions' (1e-3) and the single-camera
+   GUT steps' mean (1e-5), K1/K4/K5/K6 4 times a step; `mesh-2rank`, `parallel/dryrun.py` at the scene's size over
+   two gloo processes sharing the card as meshes (1, 2) and (2, 1) against a world of one
+   (losses, the refine, the gathered parameters); `trainer-batched` (inside the trainer
+   phases), the CLI with `--batch-size 4` on the capture: it/s, images/s, PSNR, launches
+   (4 a step, one more an eval render);
 11. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
    counts; K5 and K6 with their pair counts and ptxas' registers and spills; each kernel's
    launches in the trainer phases' runs and in the serving phases'), a `frame`
@@ -109,7 +126,8 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    launches, losses, eval PSNR/SSIM of the pinhole run; the same for the GUT run; the CLI
    run's time; the ADC run's refines, LPIPS, checks and times, the resume spread, the
    component runs, the live run), a `serving` JSON line (the sog, view-sog and viewer
-   phases) and, last, {"ok": true, "device": {...}}.
+   phases), a `batched` JSON line (the four phases of 10a) and, last, {"ok": true,
+   "device": {...}}.
 
 Any failure raises and exits non-zero; without a CUDA device, or outside the repository,
 it exits non-zero before printing any result. Times are medians over CUDA-event-timed
@@ -175,6 +193,10 @@ SH4_STEPS = 5
 CROP_MIN, CROP_MAX = (-2.0, -1.5, 3.0), (2.0, 1.5, 8.0)
 VIEWER_W, VIEWER_H, VIEWER_FRAMES = 960, 540, 12
 LIVE_ITERS, LIVE_TIMELAPSE_EVERY = 48, 16
+# the batched step: cameras a step, the steps of its counted run, the batched CLI's run
+BATCH, BATCHED_STEPS, TRAINER_BATCHED_ITERS = 4, 8, 32
+BATCHED_GUT_STEPS = 6
+BATCHED_CAPACITY = 1 << 20  # the batched phases' slots: the scene's 1M and dead ones
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -1612,6 +1634,13 @@ def trainer_phases(params, focal, dev, counted) -> dict:
         phase("trainer-cli", **cli)
         torch.cuda.empty_cache()
 
+        # -- the CLI with --batch-size: B cameras an optimizer step on a 1x1 mesh
+        batched = trainer_batched_phase(root, dev, counted)
+        phase("trainer-batched", **{k: batched[k] for k in (
+            "iterations", "batch", "it_per_s", "images_per_s", "psnr", "launches",
+            "plan_history", "gather_budget")})
+        torch.cuda.empty_cache()
+
         # -- the ADC preset with LPIPS, checkpoint and resume, the components
         adc = trainer_adc_phase(root, dev, counted)
         resume = trainer_resume_phase(root, dev, counted)
@@ -1624,8 +1653,8 @@ def trainer_phases(params, focal, dev, counted) -> dict:
             "paused_s", "launches", "steps", "timelapse_renders", "viewer_renders",
             "client_frames", "sog_s", "sog_bytes", "live_render_ms", "live_encode_ms")})
         torch.cuda.empty_cache()
-    return dict(capture=capture, pinhole=pin, gut=gut, cli=cli, adc=adc, resume=resume,
-                components=components, live=live)
+    return dict(capture=capture, pinhole=pin, gut=gut, cli=cli, batched=batched, adc=adc,
+                resume=resume, components=components, live=live)
 
 
 def require_launches(launches: dict, t, label: str) -> None:
@@ -2455,6 +2484,421 @@ def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dic
                 live_encode_ms=_quantiles([s["encode_ms"] for s in frame_ms]))
 
 
+def window_phases(state, focal, frame_image, dev) -> dict:
+    """`k2k3-window`: K2 (f32 and bf16 layouts) and K3 with a tile-row offset tile_y0 in
+    {0, 3, 17} against their plain versions on random segments at (tile 16, chunk 128) and
+    (tile 32, chunk 256), the splats moved down with the window; then the render frame
+    (`render_view`'s plan) as 2 and as 4 windows of tile rows, each `_window_proj` ->
+    `build_sorted_instances(tile_y0)` -> K2 with tile_y0, the windows stacked and held
+    against the whole frame at atol 1e-5. -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.blend import (blend_backward, blend_backward_plain,
+                                                blend_forward, blend_forward_plain,
+                                                pack_features_bf16)
+    from tpu_splat_torch.ops.cuda.raster import build_sorted_instances, feature_table
+    from tpu_splat_torch.ops.projection import project
+    from tpu_splat_torch.ops.rasterize import assemble_image, blend_instances
+    from tpu_splat_torch.parallel.raster_mc import _window_proj
+    from tpu_splat_torch.render import max_instances_for
+
+    res = dict(k2_max_abs_err=0.0, k3_rel_err=0.0, cases=0)
+    for ts, ch, seed in ((16, 128, 21), (32, 256, 22)):
+        (flat, seg, cnt), kw = random_segments(ts, ch, seed, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gout = 0.3 * torch.randn((kw["n_tiles"], ts * ts, 8), device=dev, generator=gen)
+        owned = torch.zeros(flat.shape[1], dtype=torch.bool, device=dev)
+        for s0, c in zip(seg.tolist(), cnt.tolist()):
+            owned[s0:s0 + c] = True
+        for y0 in (0, 3, 17):
+            moved = flat.clone()
+            moved[1] += y0 * ts
+            for layout, fl in (("f32", moved), ("bf16", pack_features_bf16(moved))):
+                kwy = dict(kw, tile_y0=y0)
+                fwd = blend_forward(fl, seg, cnt, **kwy)
+                fwd_plain = blend_forward_plain(fl, seg, cnt, **kwy)
+                err = check_blend(fwd, fwd_plain, f"K2 {layout} tile_y0 {y0} {ts}-{ch}")
+                bwd_args = (fl, seg, cnt, fwd[1], fwd[0], gout)
+                rel = check_blend_bwd(blend_backward(*bwd_args, **kwy),
+                                      blend_backward_plain(*bwd_args, **kwy), owned,
+                                      f"K3 {layout} tile_y0 {y0} {ts}-{ch}")
+                res["k2_max_abs_err"] = max(res["k2_max_abs_err"], err)
+                res["k3_rel_err"] = max(res["k3_rel_err"], rel)
+                res["cases"] += 1
+        # the offset is live: the same segments one window lower blend other pixels
+        other = blend_forward(flat, seg, cnt, **dict(kw, tile_y0=3))[0]
+        require(max_err(other, blend_forward(flat, seg, cnt, **kw)[0]) > 1e-2,
+                "tile_y0 changed nothing")
+
+    gw, gh, ts = -(-WIDTH // TILE_F), -(-HEIGHT // TILE_F), TILE_F
+    max_inst = max_instances_for(state.means.shape[0])
+    with torch.no_grad():
+        proj = project(state.means, state.scaling_raw, state.rotation_raw, state.opacity_raw,
+                       state.sh0, state.shN, state.alive, torch.eye(4, device=dev),
+                       torch.zeros(3, device=dev), focal, focal, WIDTH / 2.0, HEIGHT / 2.0,
+                       WIDTH, HEIGHT, 3, tile_size=ts)
+        res["windows"] = {}
+        for n_win in (2, 4):
+            gh_loc = -(-gh // n_win)
+            rows, instances = [], 0
+            for w in range(n_win):
+                y0 = w * gh_loc
+                wproj = _window_proj(proj, y0, gh_loc)
+                inst = build_sorted_instances(wproj, gw, gh_loc, max_inst, ts, tile_y0=y0,
+                                              image_tiles=gw * gh)
+                tc, ta, _ = blend_instances(inst, feature_table(wproj), grid_w=gw,
+                                            grid_h=gh_loc, tile_size=ts, k_max=K_MAX_F,
+                                            chunk=CHUNK_F, tile_y0=y0)
+                rows.append(assemble_image(tc, ta, gw, gh_loc, ts, gw * ts, gh_loc * ts)[0])
+                instances += int(inst.total_instances)
+            img = torch.cat(rows, dim=1)[:, :HEIGHT, :WIDTH]
+            torch.cuda.synchronize()
+            err = max_err(img, frame_image)
+            require(err <= 1e-5, f"{n_win} windows against the whole frame: {err}")
+            res["windows"][n_win] = dict(max_abs_err=err, emitted_instances=instances)
+    return res
+
+
+def padded_splat(params, capacity: int, dev, sh_degree: int = 3):
+    """The scene's Gaussians in the first rows of a state of `capacity` slots (the rest
+    dead), scene scale 3 as `train_setup`'s."""
+    from tpu_splat_torch.convert import splat_from_numpy
+
+    n = params["means"].shape[0]
+    padded = {}
+    for k, v in params.items():
+        pad = np.zeros((capacity - n, *v.shape[1:]), np.float32)
+        if k == "rotation_raw":
+            pad[:, 0] = 1.0
+        padded[k] = np.concatenate([v, pad])
+    return splat_from_numpy(padded, np.arange(capacity) < n, sh_degree, dev, scene_scale=3.0)
+
+
+def batch_cameras(n: int, seed: int):
+    """n distinct cameras: small rotations and shifts of the identity camera (as
+    `write_capture`'s views). -> (w2cs [n, 4, 4], cam_positions [n, 3])"""
+    rng = np.random.default_rng(seed)
+    w2cs, cpos = [], []
+    for _ in range(n):
+        ax, ay, az = rng.uniform(-0.03, 0.03, 3)
+        c, s_ = np.cos([ax, ay, az]), np.sin([ax, ay, az])
+        rx = np.array([[1, 0, 0], [0, c[0], -s_[0]], [0, s_[0], c[0]]])
+        ry = np.array([[c[1], 0, s_[1]], [0, 1, 0], [-s_[1], 0, c[1]]])
+        rz = np.array([[c[2], -s_[2], 0], [s_[2], c[2], 0], [0, 0, 1]])
+        r = (rz @ ry @ rx).astype(np.float32)
+        t = rng.uniform(-0.15, 0.15, 3).astype(np.float32)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3], w2c[:3, 3] = r, t
+        w2cs.append(w2c)
+        cpos.append(-r.T @ t)
+    return np.stack(w2cs), np.stack(cpos).astype(np.float32)
+
+
+def step_param_grads(fn, params: dict):
+    """Runs `fn` (a train step -> (state, stats)) and returns the splat parameter gradients
+    its first `torch.autograd.grad` call took (zeros where a leaf had none) and its stats."""
+    import torch
+
+    calls, grad = [], torch.autograd.grad
+
+    def recording(*a, **k):
+        out = grad(*a, **k)
+        calls.append(out)
+        return out
+
+    torch.autograd.grad = recording
+    try:
+        _, st = fn()
+    finally:
+        torch.autograd.grad = grad
+    return [torch.zeros_like(v) if g is None else g
+            for v, g in zip(params.values(), calls[0])], st
+
+
+def batched_step_phase(params, focal, dev, counted, plan) -> dict:
+    """`batched-step`: the batched step in a world of one process (a 1x1 mesh) on the scene
+    in a state of 2^20 slots, BATCH cameras a step (tile 32, chunk 256, bf16 pack, the
+    train phase's plan with 20% more instances) and a gather budget below the capacity,
+    so that `compact_visible` runs. Holds the step's parameter gradients against the mean
+    of the BATCH single-camera `train_step`s' from the same state (the same kernels and the
+    same sort on each camera; only the batch mean's order of adds differs: within 1e-5 of
+    each group's largest), counts K1-K4 over BATCHED_STEPS steps with the counts set to 0
+    just before (BATCH each a step) and times the step. -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops.rasterize import rasterize
+    from tpu_splat_torch.parallel.mesh import make_mesh
+    from tpu_splat_torch.parallel.step import make_batched_train_step
+    from tpu_splat_torch.training.train_step import (StepConfig, init_train_state,
+                                                     train_step)
+
+    capacity = BATCHED_CAPACITY
+    sp = padded_splat(params, capacity, dev, sh_degree=3)
+    ts0 = init_train_state(sp, seed=0, device=dev)
+    w2cs, cpos = batch_cameras(BATCH, seed=31)
+    intr = np.tile(np.asarray([focal, focal, WIDTH / 2.0, HEIGHT / 2.0], np.float32),
+                   (BATCH, 1))
+    bg = np.zeros(3, np.float32)
+    with torch.no_grad():  # targets: the perturbed copy of the scene, as train_setup's
+        gts = torch.stack([rasterize(
+            sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw + 1.0,
+            sp.sh0 * 0.5 + 0.3, sp.shN, sp.alive, w2cs[b], cpos[b], *intr[b], 0, bg,
+            width=WIDTH, height=HEIGHT, max_instances=1 << 22, k_max=1 << 12, chunk=CHUNK_T,
+            tile_size=TILE_T, device=dev).image for b in range(BATCH)])
+    budget = -(-N_GAUSS // 128) * 128
+    plan = dataclasses.replace(plan, max_instances=-(-int(plan.max_instances * 1.2) // 128)
+                               * 128, gather_budget=budget)
+    require(budget < capacity, "the gather budget must be below the capacity")
+    kw = dict(width=WIDTH, height=HEIGHT, plan=plan, opt=StepConfig(), total_iterations=30_000)
+    step = make_batched_train_step(make_mesh(1))
+    grads_of = functools.partial(step_param_grads, params=ts0.splat.params())
+    noise = torch.zeros((capacity, 3), device=dev)
+    g_batch, st_b = grads_of(lambda: step(ts0, gts, w2cs, cpos, intr, bg, noise=noise, **kw))
+    single = [grads_of(lambda b=b: train_step(ts0, gts[b], w2cs[b], cpos[b], *intr[b], bg,
+                                              plan=dataclasses.replace(plan, gather_budget=None),
+                                              noise=noise, **{k: v for k, v in kw.items()
+                                                              if k != "plan"}))[0]
+              for b in range(BATCH)]
+    torch.cuda.synchronize()
+    rel = {}
+    for name, gb, *gs in zip(ts0.splat.params(), g_batch, *single):
+        want = sum(gs) / BATCH
+        scale = float(want.abs().max())
+        rel[name] = max_err(gb, want) / scale if scale > 0 else max_err(gb, want)
+        require(rel[name] <= 1e-5, f"batched gradient of {name}: {rel[name]} of {scale}")
+    require(int(st_b.n_shard_visible) <= budget < capacity
+            and int(st_b.total_instances) <= plan.max_instances
+            and int(st_b.max_tile_count) <= plan.k_max, ("batched step overflow", st_b, plan))
+    del single, g_batch
+
+    for fn in counted:
+        fn.launches = 0
+    ts, wall, losses = ts0, [], []
+    for _ in range(BATCHED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, st = step(ts, gts, w2cs, cpos, intr, bg, **kw)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(st.loss))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    require(all(launches[fn.__name__] == (BATCH * BATCHED_STEPS if fn in counted[:4] else 0)
+                for fn in counted), f"K1-K4 must launch {BATCH} times a step: {launches}")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            ("batched losses", losses))
+    step_ms = statistics.median(wall[2:])
+    return dict(batch=BATCH, steps=BATCHED_STEPS, capacity=capacity, gaussians=N_GAUSS,
+                width=WIDTH, height=HEIGHT, plan=dataclasses.asdict(plan),
+                n_shard_visible=int(st_b.n_shard_visible), grad_rel_err=rel,
+                grad_rel_err_bound=1e-5, step_ms=step_ms, step_ms_all=wall,
+                cameras_per_s=BATCH * 1e3 / step_ms, launches=launches, losses=losses)
+
+
+def batched_gut_step_phase(params, focal, dev, counted, plan) -> dict:
+    """`batched-gut-step`: the batched step through the GUT blend in a world of one process
+    (a 1x1 mesh) on the scene in 2^20 slots, BATCH cameras a step with radial k1 = 0.05
+    handed over per camera as the Trainer hands it, the GUT phase's plan (tile 32, float32
+    features) with 20% more instances and a gather budget below the capacity, so that
+    `compact_visible` packs the 16 GUT feature columns beside the projection. K5 and K6
+    run on each window's world rays (`pixel_world_rays(tile_y0=)`). Holds the step's
+    parameter gradients through the kernels against the same step through the plain
+    versions (within 1e-3 of each group's largest, as `gut-gradient-parity`) and against
+    the mean of the BATCH single-camera GUT `train_step`s' (the same kernels on the same
+    rays: within 1e-5), counts the kernels over BATCHED_GUT_STEPS steps with the counts set
+    to 0 just before (K1, K5, K6 and K4 BATCH times a step; K2, K3 and K7 none) and times
+    the step. -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops.cameras import CameraParams
+    from tpu_splat_torch.ops.gut import rasterize_gut
+    from tpu_splat_torch.parallel.mesh import make_mesh
+    from tpu_splat_torch.parallel.step import make_batched_train_step
+    from tpu_splat_torch.training.train_step import (StepConfig, init_train_state,
+                                                     train_step)
+
+    coeffs = CameraParams(radial=(0.05, 0.0, 0.0, 0.0, 0.0, 0.0))
+    d12 = np.asarray(coeffs.coeff_vector(), np.float32)
+    dist = np.tile(d12, (BATCH, 1))
+    capacity = BATCHED_CAPACITY
+    sp = padded_splat(params, capacity, dev, sh_degree=3)
+    ts0 = init_train_state(sp, seed=0, device=dev)
+    w2cs, cpos = batch_cameras(BATCH, seed=37)
+    intr = np.tile(np.asarray([focal, focal, WIDTH / 2.0, HEIGHT / 2.0], np.float32),
+                   (BATCH, 1))
+    bg = np.zeros(3, np.float32)
+    with torch.no_grad():  # targets: the perturbed copy of the scene, as train_setup's
+        gts = torch.stack([rasterize_gut(
+            sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw + 1.0,
+            sp.sh0 * 0.5 + 0.3, sp.shN, sp.alive, w2cs[b], cpos[b], *intr[b], 0, bg,
+            cam_params=coeffs, width=WIDTH, height=HEIGHT, max_instances=1 << 22,
+            k_max=1 << 12, tile_size=TILE_T, device=dev).image for b in range(BATCH)])
+    budget = -(-N_GAUSS // 128) * 128
+    plan = dataclasses.replace(plan, max_instances=-(-int(plan.max_instances * 1.2) // 128)
+                               * 128, gather_budget=budget)
+    require(budget < capacity, "the gather budget must be below the capacity")
+    kw = dict(width=WIDTH, height=HEIGHT, plan=plan, total_iterations=30_000,
+              opt=StepConfig(gut=True, cam_params=CameraParams()))
+    step = make_batched_train_step(make_mesh(1))
+    grads_of = functools.partial(step_param_grads, params=ts0.splat.params())
+    noise = torch.zeros((capacity, 3), device=dev)
+    runs = {impl: grads_of(lambda impl=impl: step(ts0, gts, w2cs, cpos, intr, bg, None, dist,
+                                                  noise=noise, impl=impl, **kw))
+            for impl in ("kernel", "plain")}
+    g_kernel, st_b = runs["kernel"]
+    single_kw = dict(kw, plan=dataclasses.replace(plan, gather_budget=None))
+    single = [grads_of(lambda b=b: train_step(ts0, gts[b], w2cs[b], cpos[b], *intr[b], bg, 0,
+                                              d12, noise=noise, **single_kw))[0]
+              for b in range(BATCH)]
+    torch.cuda.synchronize()
+    rel = dict(plain={}, single_mean={})
+    for name, gk, gp, *gs in zip(ts0.splat.params(), g_kernel, runs["plain"][0], *single):
+        for label, want, bound in (("plain", gp, 1e-3), ("single_mean", sum(gs) / BATCH, 1e-5)):
+            scale = float(want.abs().max())
+            rel[label][name] = max_err(gk, want) / scale if scale > 0 else max_err(gk, want)
+            require(rel[label][name] <= bound,
+                    f"batched GUT gradient of {name} ({label}): {rel[label][name]} of {scale}")
+    require(int(st_b.n_shard_visible) <= budget < capacity
+            and int(st_b.total_instances) <= plan.max_instances
+            and int(st_b.max_tile_count) <= plan.k_max, ("batched GUT overflow", st_b, plan))
+    require(abs(float(st_b.loss) - float(runs["plain"][1].loss)) <= 1e-5 * float(st_b.loss),
+            ("batched GUT loss, kernels against plain", float(st_b.loss),
+             float(runs["plain"][1].loss)))
+    del single, runs, g_kernel
+
+    for fn in counted:
+        fn.launches = 0
+    ts, wall, losses = ts0, [], []
+    for _ in range(BATCHED_GUT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, st = step(ts, gts, w2cs, cpos, intr, bg, None, dist, **kw)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(st.loss))
+    launches = {fn.__name__: fn.launches for fn in counted}
+    per_step = ("expand_emission", "segsum_emission", "gut_blend_forward",
+                "gut_blend_backward")
+    require(all(n == (BATCH * BATCHED_GUT_STEPS if k in per_step else 0)
+                for k, n in launches.items()),
+            f"K1, K4, K5 and K6 must launch {BATCH} times a step, the others never: {launches}")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            ("batched GUT losses", losses))
+    step_ms = statistics.median(wall[2:])
+    return dict(batch=BATCH, steps=BATCHED_GUT_STEPS, capacity=capacity, gaussians=N_GAUSS,
+                camera="pinhole, radial k1 = 0.05 per camera", width=WIDTH, height=HEIGHT,
+                plan=dataclasses.asdict(plan), n_shard_visible=int(st_b.n_shard_visible),
+                grad_rel_err=rel, grad_rel_err_bound=dict(plain=1e-3, single_mean=1e-5),
+                step_ms=step_ms, step_ms_all=wall, cameras_per_s=BATCH * 1e3 / step_ms,
+                launches=launches, losses=losses)
+
+
+def mesh_2rank_phase(dev) -> dict:
+    """`mesh-2rank`: `parallel/dryrun.py` at the render scene's size (1M Gaussians, 2^20
+    slots, 1296x840, tile 32, chunk 256, SH degree 1, B = 2 distinct cameras): two steps,
+    a refine on the gathered state and one more step, in a world of one process and over
+    two gloo processes sharing the card as meshes (1, 2) and (2, 1), against the world of
+    one: the losses before the refine within 1e-5 and after it within 1e-3, the refine's
+    counts and the alive mask equal, and the share of gathered parameter entries more than
+    1e-5 + 1e-5 |x| away: at most 1e-3 before the refine (Adam's first steps move an entry
+    by lr * sign(g), and a gradient summed over two windows in another order can change
+    sign where it is near zero), reported after it (a relocation samples its sources from
+    the opacities' running sum, which such an entry shifts, and the shifted picks are
+    other Gaussians' copies). NCCL across cards is not run: the machine has one card."""
+    from tpu_splat_torch.parallel import dryrun
+
+    scene = dryrun.Scene(n_gauss=N_GAUSS, capacity=BATCHED_CAPACITY, width=WIDTH,
+                         height=HEIGHT, batch=2, tile_size=TILE_T, chunk=CHUNK_T, sh_degree=1,
+                         scale=0.004)
+    device = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+    t0 = time.perf_counter()
+    one = dryrun.run(1, 1, scene, device, steps=2)
+    res = dict(scene=dataclasses.asdict(scene), world1=dict(
+        losses=one["losses"], step_s=one["step_s"], refine=one["refine"],
+        counts=one["counts"], seconds=time.perf_counter() - t0))
+    for data in (1, 2):
+        t0 = time.perf_counter()
+        got = dryrun.run(2, data, scene, device, steps=2, timeout=900)
+        far = {when: {k: float(np.mean(np.abs(got[when][k] - want)
+                                       > 1e-5 + 1e-5 * np.abs(want)))
+                      for k, want in one[when].items()}
+               for when in ("params_before_refine", "params")}
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"])]
+        tag = f"mesh {data}x{2 // data}"
+        res[f"mesh_{data}x{2 // data}"] = dict(
+            losses=got["losses"], loss_rel_err=rel, step_s=got["step_s"],
+            refine=got["refine"], counts=got["counts"],
+            far_share_before_refine=far["params_before_refine"],
+            far_share_after_refine=far["params"], seconds=time.perf_counter() - t0)
+        require(got["mesh"] == (data, 2 // data), got["mesh"])
+        require(max(rel[:-1]) <= 1e-5 and rel[-1] <= 1e-3, (f"{tag} losses", rel))
+        require(got["refine"] == one["refine"] and np.array_equal(got["alive"], one["alive"]),
+                (f"{tag} refine", got["refine"], one["refine"]))
+        require(max(far["params_before_refine"].values()) <= 1e-3,
+                (f"{tag} parameters before the refine", far))
+    return res
+
+
+def trainer_batched_phase(root: Path, dev, counted) -> dict:
+    """`trainer-batched`: the CLI (in this process, so that launches are counted) with
+    `--batch-size BATCH` on the trainer phase's capture: TRAINER_BATCHED_ITERS iterations,
+    evals at 8 and the last. -> it/s, images/s, PSNR, launches"""
+    import torch
+
+    from tpu_splat_torch.cli import main as cli_main
+    from tpu_splat_torch.training import trainer as trainer_mod
+
+    cfg = root / "batched.json"
+    last = TRAINER_BATCHED_ITERS
+    cfg.write_text(json.dumps(dict(
+        max_cap=1_000_000, sh_degree=3, sh_degree_interval=last // 4, refine_every=8,
+        start_refine=8, stop_refine=last - 4, eval_steps=[8, last], save_steps=[last],
+        enable_save_eval_images=False, num_workers=8)))
+    kept, train = [], trainer_mod.Trainer.train
+
+    def recording_train(self, *a, **k):
+        kept.append(self)
+        self.initial_plan = self.plan
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            return train(self, *a, **k)
+        finally:
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - t0
+
+    trainer_mod.Trainer.train = recording_train
+    try:
+        rc = cli_main(["-d", str(root / "capture"), "-o", str(root / "batched"), "--headless",
+                       "--config", str(cfg), "-i", str(last), "--eval", "--test-every", "6",
+                       "--batch-size", str(BATCH)])
+    finally:
+        trainer_mod.Trainer.train = train
+    launches = {fn.__name__: fn.launches for fn in counted}
+    (t,) = kept
+    require(rc == 0 and (root / "batched" / "splat_final.ply").exists(), "batched CLI run")
+    require(t.mesh is not None and t.mesh.shape == {"data": 1, "gauss": 1}, t.mesh)
+    steps, evals = t.steps_dispatched, t.eval_renders
+    require(all(launches[k] == BATCH * steps + evals for k in ("expand_emission",
+                                                               "blend_forward"))
+            and all(launches[k] == BATCH * steps for k in ("blend_backward",
+                                                           "segsum_emission"))
+            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
+                                                "segred_prefix")),
+            f"K1-K4 must launch {BATCH} times a step (K1, K2 once more an eval render): "
+            f"{launches}, {steps} steps, {evals} eval renders")
+    require(len(t._loss_hist) == last and all(math.isfinite(v) for v in t._loss_hist),
+            "batched trainer losses")
+    res = trainer_summary(t, launches, t.wall_s)
+    psnrs = [e["psnr"] for e in res["evals"]]
+    require(len(psnrs) == 2 and psnrs[-1] > psnrs[0], ("batched eval PSNR did not rise", psnrs))
+    res.update(batch=BATCH, images_per_s=BATCH * res["it_per_s"],
+               images_per_s_without_eval_and_save=BATCH * res["it_per_s_without_eval_and_save"],
+               psnr=psnrs, gather_budget=t.plan.gather_budget)
+    return res
+
+
 def segred_random_phases(dev) -> dict:
     """K4 and K7 on random runs: 200,000 Gaussians, a quarter of them with empty runs, one
     run of 300,000 slots (it spans 293 of K7's 1024-slot blocks), 1000 tail slots that
@@ -2557,7 +3001,7 @@ def main() -> int:
     from tpu_splat_torch.training import strategy_mcmc
     from tpu_splat_torch.training.losses import photometric_loss, regularization_losses
     from tpu_splat_torch.training.optim import adam_step, group_lrs, means_lr_at
-    from tpu_splat_torch.training.train_step import refine_step, train_step
+    from tpu_splat_torch.training.train_step import RasterPlan, refine_step, train_step
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2686,6 +3130,10 @@ def main() -> int:
     pairs = check_stops(k2[1], k2_plain[1], flat, (seg_start, count), bkw, "K2 frame")
     phase("kernel-parity-frame", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
           k2_random_max_abs_err=k2_random_err, k2_pairs=pairs)
+
+    # -- K2/K3 with a tile-row offset, and the frame as windows of tile rows
+    window = window_phases(state, f, out.image, dev)
+    phase("k2k3-window", **window)
 
     # -- times at the frame's shapes
     k1_ms = cuda_ms(lambda: expand_emission(ftab, itab, offs_incl, max_inst), 20)
@@ -2987,12 +3435,28 @@ def main() -> int:
         loss_first5=first5, loss_last5=last5, refine=refine_info,
         gradient_rel_err=grad_err)
 
-    # ======================= the GUT camera path =======================
+    # ======================= the batched step and the mesh =======================
     del ts, sp, splat, ts0, target, target_t, leaves, grads, new_params
     torch.cuda.empty_cache()
+    batched_step = batched_step_phase(params, focal, dev, counted, plan)
+    phase("batched-step", **{k: batched_step[k] for k in (
+        "batch", "steps", "grad_rel_err", "grad_rel_err_bound", "step_ms", "cameras_per_s",
+        "launches", "n_shard_visible")})
+    torch.cuda.empty_cache()
+    mesh2 = mesh_2rank_phase(dev)
+    phase("mesh-2rank", **mesh2)
+    torch.cuda.empty_cache()
+
+    # ======================= the GUT camera path =======================
     gut = gut_phases(params, focal, dev, counted, kernels)
     gut.update(k5_random_max_abs_err=k5_random_err, k6_random_rel_err=k6_random_err,
                segred_random=segred_random)
+    torch.cuda.empty_cache()
+    batched_gut = batched_gut_step_phase(params, focal, dev, counted,
+                                         RasterPlan(**gut["plan"]))
+    phase("batched-gut-step", **{k: batched_gut[k] for k in (
+        "batch", "steps", "grad_rel_err", "grad_rel_err_bound", "step_ms", "cameras_per_s",
+        "launches", "n_shard_visible")})
 
     # ======================= the trainer: capture -> Trainer -> CLI =======================
     torch.cuda.empty_cache()
@@ -3003,7 +3467,8 @@ def main() -> int:
                   "blend_bwd.cu": "blend_backward", "segsum.cu": "segsum_emission",
                   "gut_fwd.cu": "gut_blend_forward", "gut_bwd.cu": "gut_blend_backward",
                   "segprefix.cu": "segred_prefix"}
-    runs = dict(pinhole=trainer["pinhole"], gut=trainer["gut"], adc=trainer["adc"],
+    runs = dict(pinhole=trainer["pinhole"], gut=trainer["gut"], batched=trainer["batched"],
+                batched_step=batched_step, batched_gut_step=batched_gut, adc=trainer["adc"],
                 resumed=trainer["resume"], grid_pose=trainer["components"]["grid_pose"],
                 sparsity=trainer["components"]["sparsity"])
     serving_runs = dict(view_sog_cli=view_sog["cli"], point_cloud=view_sog["frames"]["point_cloud"],
@@ -3020,6 +3485,9 @@ def main() -> int:
     print(json.dumps({"gut": gut}), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"batched": dict(window=window, step=batched_step, gut_step=batched_gut,
+                                      mesh_2rank=mesh2, trainer=trainer["batched"])}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

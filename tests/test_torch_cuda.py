@@ -7,7 +7,7 @@ They import neither JAX nor the JAX package, so they run where only PyTorch is i
 
 Tolerances: K1 exactly (integer bookkeeping and row copies); K2 `out` and `chk` atol 1e-5
 in both layouts (rtol 1e-5 on the accumulated depth), its stop decisions (zero checkpoints)
-exactly; K3 bit-equal on two launches, and max abs error <= 1e-4 of the
+exactly, also over a window of tile rows (`tile_y0` 3 and 17); K3 bit-equal on two launches, and max abs error <= 1e-4 of the
 largest absolute gradient and unowned columns exactly zero (float32 pixel sums in another
 order; the kernel takes the suffix as total minus prefix, the plain version as a reverse
 running sum); K4 rtol 1e-5, atol 1e-5 of the rows' magnitude (order of float32 adds), and
@@ -20,8 +20,8 @@ absolute values over the same run (a shuffle tree and a fold of block aggregates
 masked shifted adds: only the order of float32 adds differs); K4 and K7 also through the
 emission->column index (rows in a random tile-sorted order), and the same bits on two
 launches;
-the train step through the kernels against the same step through the plain versions:
-loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
+the train step (and the batched step on a 1x1 mesh) through the kernels against the same
+step through the plain versions: loss rtol 1e-5; parameters atol 1e-5 on at least 99% of each group (Adam's first steps
 move a parameter by lr * sign(g) where |g| is tiny, so a rounding-level difference in a
 near-zero gradient moves that one parameter by a whole lr);
 ADC's `dens_grad2d` through K3/K4 within 1e-3 of its largest value of the plain versions',
@@ -127,6 +127,37 @@ def test_blend_backward_kernel_matches_plain_on_card(tile_size, chunk, layout, b
     for s0, c in zip(seg_start.tolist(), count.tolist()):
         owned[s0:s0 + c] = True
     assert bool((got[:, ~owned] == 0).all()) and int((~owned).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_y0", [3, 17])
+@pytest.mark.parametrize("layout", ["f32", "bf16"])
+@pytest.mark.parametrize("tile_size,chunk", [(16, 128), (32, 256)])
+def test_blend_kernels_with_tile_y0_match_plain_on_card(tile_size, chunk, layout, tile_y0):
+    """K2 and K3 over a window of tile rows starting at `tile_y0` (the splats moved down
+    with it) against their plain versions; the same tolerances as at tile_y0 = 0, and
+    K2's stop decisions equal."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    (flat, seg_start, count), kw = random_segments(tile_size, chunk, 9, dev)
+    flat = flat.clone()
+    flat[1] += tile_y0 * tile_size
+    if layout == "bf16":
+        flat = pack_features_bf16(flat)
+    kw = dict(kw, tile_y0=tile_y0)
+    out, chk = blend_forward(flat, seg_start, count, **kw)
+    want_out, want_chk = blend_forward_plain(flat, seg_start, count, **kw)
+    torch.testing.assert_close(out[..., :4], want_out[..., :4], rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[..., 4:], want_out[..., 4:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(chk, want_chk, rtol=0, atol=1e-5)
+    assert torch.equal(chk == 0, want_chk == 0) and bool((want_chk == 0).any())
+    gout = 0.3 * torch.randn(out.shape, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(4))
+    args = (flat, seg_start, count, chk, out, gout)
+    got = blend_backward(*args, **kw)
+    want = blend_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
 
 
 def _check_gut_kernels_on_card(args, kw):
@@ -249,6 +280,61 @@ def test_train_step_through_kernels_matches_plain_on_card(mode):
     for k, v in ts_k.splat.params().items():
         off = ((v - ts_p.splat.params()[k]).abs() > 1e-5).float().mean()
         assert float(off) <= 1e-2, (k, float(off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["mcmc", "default", "gut"])
+def test_batched_step_through_kernels_matches_plain_on_card(strategy):
+    """The batched step (a 1x1 mesh, B = 2 cameras, a gather budget below the capacity)
+    through the kernels against the same step through the plain versions: as the train
+    step's test above, and ADC's densification counts exactly. "gut" is the MCMC step
+    through the GUT blend (K5/K6 on the window's world rays, each camera's distortion
+    coefficients passed as the Trainer passes them), K1/K4/K5/K6 launched twice a step."""
+    _require_cuda()
+    from tpu_splat_torch.ops.cuda import gut_kernels
+    from tpu_splat_torch.parallel import dryrun
+    from tpu_splat_torch.parallel.mesh import make_mesh
+    from tpu_splat_torch.parallel.step import make_batched_train_step
+
+    gut = strategy == "gut"
+    scene = dryrun.Scene(n_gauss=3000, capacity=4096, width=128, height=96, tile_size=32,
+                         chunk=256, scale=0.03)
+    gts, w2cs, cpos, intr = dryrun.cameras(scene)
+    plan = dataclasses.replace(dryrun.plan_for(scene, 1), gather_budget=3072)
+    step = make_batched_train_step(make_mesh(1))
+    if gut:
+        opt = StepConfig(gut=True, cam_params=CameraParams())
+        coeffs = CameraParams(radial=(0.05, -0.01, 0, 0, 0, 0), tangential=(0.001, 0.0))
+        dist = np.tile(np.asarray(coeffs.coeff_vector(), np.float32), (scene.batch, 1))
+    else:
+        opt, dist = StepConfig(strategy=strategy), None
+    kw = dict(width=scene.width, height=scene.height, plan=plan, opt=opt,
+              total_iterations=100,
+              noise=np.random.default_rng(2).normal(0, 1, (4096, 3)).astype(np.float32))
+    wrappers = (expand_emission, segsum_emission, blend_forward, blend_backward,
+                gut_kernels.gut_blend_forward, gut_kernels.gut_blend_backward)
+    results = []
+    for impl in ("kernel", "plain"):
+        ts = init_train_state(dryrun.random_splat(scene, "cuda"), seed=1)
+        for fn in wrappers:
+            fn.launches = 0
+        for _ in range(2):
+            ts, stats = step(ts, gts, w2cs, cpos, intr, np.zeros(3, np.float32), None, dist,
+                             impl=impl, **kw)
+        if impl == "kernel":
+            used = wrappers[:2] + (wrappers[4:] if gut else wrappers[2:4])
+            assert all(fn.launches == 2 * scene.batch for fn in used), \
+                {fn.__name__: fn.launches for fn in wrappers}
+            assert all(fn.launches == 0 for fn in wrappers if fn not in used)
+        assert int(stats.n_shard_visible) <= plan.gather_budget
+        assert int(stats.total_instances) <= plan.max_instances
+        results.append((float(stats.loss), ts))
+    (loss_k, ts_k), (loss_p, ts_p) = results
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for k, v in ts_k.splat.params().items():
+        off = ((v - ts_p.splat.params()[k]).abs() > 1e-5).float().mean()
+        assert float(off) <= 1e-2, (k, float(off))
+    assert torch.equal(ts_k.dens_count, ts_p.dens_count)
 
 
 def _tile_sorted_on_card(rows, gen):

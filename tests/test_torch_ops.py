@@ -169,6 +169,7 @@ def test_port_imports_no_jax():
         "from tpu_splat_torch.core import camera, config, geometry, project\n"
         "import tpu_splat_torch.viewer\n"
         "from tpu_splat_torch.utils import async_io, events\n"
+        "from tpu_splat_torch.parallel import distributed, dryrun, mesh, raster_mc, step\n"
         "import chip_smoke, profile_render, ab_blend_kernels, ab_gut_kernels\n"
         "import ab_segred_kernels\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -12,9 +12,13 @@ test_trainer_end_to_end` through `cli.main([... "--headless", "--device", "cpu"]
 falling loss, PSNR > 10 on the one val image, PLY with n == n_alive, the CLI's files); a
 forced overflow that rolls back the state and the generator, grows the plan and keeps
 `pack_bf16`, with one loss per iteration; a short `--gut` run on an OPENCV capture; that a
-distorted capture without `--gut`, each flag not ported yet, and training with no card and
-no `--device cpu` raise; each flag of the ADC / checkpoint / component slice trained for 12
-iterations through `cli.main` with its effect checked (`test_ported_flags_train`).
+distorted capture without `--gut`, and training with no card and no `--device cpu`, raise;
+each flag of the ADC / checkpoint / component slice trained for 12 iterations through
+`cli.main` with its effect checked (`test_ported_flags_train`); `--batch-size 2` and `4`
+through `cli.main` on a 1x1 mesh, the mesh over 1, 2, 4 and 8 ranks against the JAX
+Trainer's own over as many virtual devices, the gather budget's growth and redo in the plan
+table, the data loader's draw order with several threads, and the CLI over two gloo ranks
+against one process.
 """
 
 import csv
@@ -56,7 +60,8 @@ def test_buckets_and_schedules_match_jax():
         assert got.dtype == want.dtype and np.array_equal(got, want), step
 
 
-PLAN_CASES = [  # (max_instances, k_max, chunk, pack_bf16, total, max_tile)
+PLAN_CASES = [  # (max_instances, k_max, chunk, pack_bf16, total, max_tile[, gather
+    # budget, shard visible, shard capacity])
     (1 << 16, 4096, 256, True, 1000, 100),  # well inside: no change
     (1 << 16, 4096, 256, True, 60_000, 100),  # > 0.85 budget: grow, no redo
     (1 << 16, 4096, 256, True, 70_000, 100),  # overflow: grow + redo
@@ -67,26 +72,38 @@ PLAN_CASES = [  # (max_instances, k_max, chunk, pack_bf16, total, max_tile)
     (1 << 16, 4096, 256, False, 99_000, 9000),  # both overflow
     (1 << 20, 1 << 17, 256, True, 10, 120_000),  # cap 2^17: no doubling past it
     (3 << 17, 4096, 256, True, 1 << 22, 4000),  # big jump
+    # the batched step's gather budget (per-shard visible count against it)
+    (1 << 16, 4096, 256, True, 1000, 100, 1024, 500, 4096),  # inside: no change
+    (1 << 16, 4096, 256, True, 1000, 100, 1024, 900, 4096),  # > 0.85: grow, no redo
+    (1 << 16, 4096, 256, True, 1000, 100, 1024, 1500, 4096),  # overflow: grow + redo
+    (1 << 16, 4096, 256, True, 1000, 100, 1024, 5000, 4096),  # overflow past the shard
+    (1 << 16, 4096, 256, True, 1000, 100, 4096, 4000, 4096),  # at the shard: no growth
+    (1 << 16, 4096, 256, True, 70_000, 5000, 1024, 1500, 2048),  # all three overflow
 ]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
 def test_plan_growth_matches_jax(case):
-    max_inst, k_max, chunk, bf16, total, max_tile = case
-    kw = dict(max_instances=max_inst, k_max=k_max, chunk=chunk, tile_size=32, pack_bf16=bf16)
+    max_inst, k_max, chunk, bf16, total, max_tile, *batched = case
+    budget, nsv, shard_cap = batched or (None, 0, 1)
+    kw = dict(max_instances=max_inst, k_max=k_max, chunk=chunk, tile_size=32, pack_bf16=bf16,
+              gather_budget=budget)
     jplan, plan = jax_ts.RasterPlan(**kw), RasterPlan(**kw)
     stats = types.SimpleNamespace(total_instances=total, max_tile_count=max_tile,
-                                  n_shard_visible=0)
-    jself = types.SimpleNamespace(plan=jplan, mesh=None)
-    pself = types.SimpleNamespace(plan=plan)
+                                  n_shard_visible=nsv)
+    # the JAX Trainer reads a (data 1, gauss 4) mesh and the global capacity, the port's
+    # its shard's capacity
+    jself = types.SimpleNamespace(
+        plan=jplan, mesh=types.SimpleNamespace(shape={"data": 1, "gauss": 4}) if batched
+        else None, state=types.SimpleNamespace(splat=types.SimpleNamespace(
+            capacity=4 * shard_cap)))
+    pself = types.SimpleNamespace(plan=plan, shard_capacity=shard_cap)
     want = jax_trainer.Trainer._check_pending(
         jself, types.SimpleNamespace(stats=stats, plan=jplan, iteration=7))
     got = trainer.Trainer._check_pending(
         pself, types.SimpleNamespace(stats=stats, plan=plan, iteration=7))
     assert got == want
-    want_fields = dataclasses.asdict(jself.plan)
-    assert want_fields.pop("gather_budget") is None
-    assert dataclasses.asdict(pself.plan) == want_fields
+    assert dataclasses.asdict(pself.plan) == dataclasses.asdict(jself.plan)
     assert pself.plan.pack_bf16 == bf16
 
 
@@ -310,14 +327,192 @@ def test_distorted_capture_needs_gut(opencv_dir, tmp_path):
         trainer.Trainer(_small_params(opencv_dir, tmp_path / "x"), device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--batch-size", "2"], ["--mesh-data", "2"],
-                                   ["--mesh-gauss", "2"], ["--batch-size", "4"]])
-def test_unported_flags_raise(colmap_dir, tmp_path, flags):
-    argv = ["-d", str(colmap_dir), "-o", str(tmp_path / "o"), "--device", "cpu",
-            "--headless"] + flags
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(argv)
-    assert not (tmp_path / "o").exists()
+@pytest.mark.parametrize("batch", [2, 4])
+def test_batched_cli_trains(colmap_dir, tmp_path, monkeypatch, batch):
+    """`--batch-size B` on one device: a 1x1 mesh, one optimizer step over B cameras a
+    iteration, with the gather budget of the JAX Trainer's rule."""
+    kept = _keep_trainer(monkeypatch)
+    out = tmp_path / "o"
+    rc = cli.main(["-d", str(colmap_dir), "-o", str(out), "--device", "cpu", "--headless",
+                   "-i", "8", "--max-cap", "256", "--batch-size", str(batch)])
+    assert rc == 0
+    (t,) = kept
+    assert t.mesh is not None and t.mesh.shape == {"data": 1, "gauss": 1}
+    assert t.steps_dispatched == 8 and t.samples_drawn == 8 * batch
+    assert t.state.iteration == 9 and len(t._loss_hist) == 8
+    assert np.isfinite(t._loss_hist).all()
+    n0 = _sfm_points(colmap_dir)
+    assert t.plan.gather_budget == min(trainer._next_bucket(2 * n0), t.state.splat.capacity)
+    back = load_splat_ply(out / "splat_final.ply")
+    assert back["means"].shape[0] == int(t.state.splat.n_alive())
+
+
+def _sfm_points(base) -> int:
+    from tpu_splat_torch.io.loader import load
+
+    return int(load(str(base)).scene.points.shape[0])
+
+
+def test_two_ranks_train_as_one_process(colmap_dir, tmp_path):
+    """The CLI over two gloo ranks on the CPU (TPU_SPLAT_* variables, a (1, 2) mesh: the
+    state split over two gauss shards, refines on the gathered state, rank 0 writing)
+    against one process with the same flags: the same alive count, the means within 1e-5
+    (the two windows' gradient sums add in another order), rank 0's outputs only."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_splat_torch.parallel.dryrun import free_port
+
+    cfg = tmp_path / "opt.json"
+    cfg.write_text(json.dumps(dict(max_cap=256, refine_every=3, start_refine=2, stop_refine=5,
+                                   eval_steps=[], save_steps=[], num_workers=2)))
+    flags = ["-d", str(colmap_dir), "--config", str(cfg), "-i", "6", "--headless",
+             "--device", "cpu", "--batch-size", "2", "--mesh-data", "1"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(flags + ["-o", str(tmp_path / "one")]) == 0
+    finally:
+        torch.set_num_threads(n)
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", TPU_SPLAT_COORDINATOR=f"localhost:{free_port()}",
+               TPU_SPLAT_NUM_PROCESSES="2")
+    procs = [subprocess.Popen([sys.executable, "-m", "tpu_splat_torch", *flags, "-o",
+                               str(tmp_path / "two")], cwd=repo,
+                              env=dict(env, TPU_SPLAT_PROCESS_ID=str(r)),
+                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+             for r in range(2)]
+    errs = [p.communicate(timeout=240)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    one, two = (load_splat_ply(tmp_path / d / "splat_final.ply") for d in ("one", "two"))
+    assert two["means"].shape == one["means"].shape and one["means"].shape[0] > 0
+    np.testing.assert_allclose(two["means"], one["means"], rtol=0, atol=1e-5)
+    assert sorted(p.name for p in (tmp_path / "two").iterdir()) == sorted(
+        p.name.replace("one.ls", "two.ls") for p in (tmp_path / "one").iterdir())
+
+
+# rank 1 alone asks for a checkpoint before its first step and for a stop after the save
+_ONE_RANK_ASKS = """
+import os, sys
+from tpu_splat_torch import cli
+from tpu_splat_torch.training.trainer import Trainer
+from tpu_splat_torch.utils import events as ev
+
+if os.environ["TPU_SPLAT_PROCESS_ID"] == "1":
+    train, save = Trainer.train, Trainer.save_checkpoint
+
+    def asking_train(self, *a, **k):
+        ev.emit(ev.SaveCheckpoint())
+        return train(self, *a, **k)
+
+    def save_then_stop(self, *a, **k):
+        save(self, *a, **k)
+        ev.emit(ev.StopTraining())
+
+    Trainer.train, Trainer.save_checkpoint = asking_train, save_then_stop
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def test_two_ranks_save_and_stop_when_one_asks(colmap_dir, tmp_path):
+    """A SaveCheckpoint and a StopTraining seen by rank 1 alone: both ranks gather and save
+    at iteration 1 (rank 0 writes the checkpoint) and stop at iteration 2, where a rank
+    acting alone would wait forever in the other's collectives."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tpu_splat_torch.parallel.dryrun import free_port
+
+    cfg = tmp_path / "opt.json"
+    cfg.write_text(json.dumps(dict(max_cap=256, eval_steps=[], save_steps=[], num_workers=1)))
+    out = tmp_path / "two"
+    flags = ["-d", str(colmap_dir), "--config", str(cfg), "-i", "6", "--headless",
+             "--device", "cpu", "--batch-size", "2", "--mesh-data", "1", "-o", str(out)]
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", TPU_SPLAT_COORDINATOR=f"localhost:{free_port()}",
+               TPU_SPLAT_NUM_PROCESSES="2")
+    procs = [subprocess.Popen([sys.executable, "-c", _ONE_RANK_ASKS, *flags], cwd=repo,
+                              env=dict(env, TPU_SPLAT_PROCESS_ID=str(r)),
+                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=180)[1].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], errs[0][-2000:] + errs[1][-2000:]
+    assert sorted(p.name for p in out.glob("*.npz")) == ["checkpoint_1.npz"]
+    assert (out / "splat_final.ply").exists()
+    assert "stop requested at iter 2" in errs[0] + errs[1]
+
+
+MESH_CASES = [  # (batch, --mesh-data, --mesh-gauss)
+    (1, 0, 0), (2, 0, 0), (4, 0, 0), (3, 0, 0), (4, 2, 0), (4, 0, 2), (2, 1, 0), (8, 0, 4),
+]
+
+
+@pytest.mark.parametrize("world", [1, 2, 4, 8])
+def test_mesh_shape_matches_jax_trainer(colmap_dir, tmp_path, monkeypatch, world):
+    """`parallel/mesh.py::trainer_mesh_shape` against the JAX Trainer's own mesh over the
+    first `world` of the conftest's 8 virtual devices. Where the JAX Trainer would leave
+    devices idle, the port (whose ranks are launched processes) refuses."""
+    import jax
+
+    from tpu_splat.core.config import DatasetConfig as JaxDatasetConfig
+    from tpu_splat.core.config import TrainingParameters as JaxTrainingParameters
+    from tpu_splat_torch.parallel.mesh import trainer_mesh_shape
+
+    devices = jax.devices()[:world]
+    monkeypatch.setattr(jax, "devices", lambda *a: devices)
+    for batch, mesh_data, mesh_gauss in MESH_CASES:
+        opt = JaxOptimizationParameters(iterations=4, batch_size=batch, max_cap=256,
+                                        mesh_data=mesh_data, mesh_gauss=mesh_gauss,
+                                        eval_steps=[], save_steps=[])
+        params = JaxTrainingParameters(
+            dataset=JaxDatasetConfig(data_path=str(colmap_dir),
+                                     output_path=str(tmp_path / "j"), test_every=100),
+            optimization=opt)
+        try:
+            jt = jax_trainer.Trainer(params)
+            want = None if jt.mesh is None else (jt.mesh.shape["data"], jt.mesh.shape["gauss"])
+        except ValueError:
+            want = "raises"
+        if want is None:
+            # no flag asks the JAX Trainer for a mesh; the port's world of 1 takes none
+            # either, and launched ranks always form one: every rank on the gauss axis
+            assert batch == 1 and not (mesh_data or mesh_gauss)
+            want = (1, world)
+        if want != "raises" and want[0] * want[1] < world:
+            want = "raises"  # idle devices in JAX; the port has no idle rank
+        try:
+            got = trainer_mesh_shape(world, batch, mesh_data, mesh_gauss)
+        except ValueError:
+            got = "raises"
+        assert got == want, (world, batch, mesh_data, mesh_gauss)
+
+
+def test_loader_hands_samples_out_in_draw_order(colmap_dir):
+    """Every process of a multi-device run draws the same sample sequence: with several
+    loader threads the samples still come out in the order their indices were drawn,
+    the one-thread sequence."""
+    from tpu_splat_torch.training.dataset import CameraDataset, InfiniteDataLoader
+
+    t = trainer.Trainer(_small_params(colmap_dir, colmap_dir / "unused"), device="cpu")
+    ds = CameraDataset(t.train_cams)
+    orders = []
+    for workers in (1, 8):
+        loader = InfiniteDataLoader(ds, num_workers=workers, prefetch=2, seed=5, skip=3)
+        try:
+            orders.append([next(loader).index for _ in range(40)])
+        finally:
+            loader.close()
+    assert orders[0] == orders[1] and len(set(orders[0])) == len(ds)
 
 
 def test_no_card_and_no_device_raises(colmap_dir, tmp_path, monkeypatch):

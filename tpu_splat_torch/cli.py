@@ -1,6 +1,7 @@
 """Command-line interface of the port (port of `tpu_splat/cli.py`): training and `--view`.
 
     python -m tpu_splat_torch -d DATA -o OUT [--headless] [--eval] [--gut] [--device cpu]
+        [--batch-size B [--mesh-data D] [--mesh-gauss G]]
         [--strategy default | --config parameter/default_optimization_params.json]
         [--bilateral-grid] [--pose-opt direct|mlp] [--enable-sparsity]
         [--checkpoint-every N] [--resume OUT/checkpoint_N.npz] [--sog]
@@ -15,8 +16,12 @@ attach`, on loopback port `--port` unless `--viewer-host` says otherwise). Confi
 precedence is the JAX CLI's: struct defaults <- `--config` JSON <- CLI flags; the resolved
 parameters are saved to the output directory.
 
-`--batch-size > 1` and `--mesh-*` stay in the parser and raise NotImplementedError
-(`training/trainer.py::check_ported`): their code is not ported yet.
+`--batch-size B` takes one optimizer step over B cameras (on one card a 1x1 mesh). Under
+torchrun (`torchrun --nproc-per-node N -m tpu_splat_torch -d DATA -o OUT --headless
+--batch-size B [--mesh-data D]`) every process joins the run's process group
+(`parallel/distributed.py::initialize`: NCCL, a card a rank; gloo with `--device cpu`) and
+the ranks form a (data, gauss) mesh; rank 0 writes the outputs. Several ranks train only
+headless.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min-opacity", type=float, dest="min_opacity")
     p.add_argument("--num-workers", type=int, dest="num_workers")
     p.add_argument("--batch-size", type=int, dest="batch_size",
-                   help="cameras per optimizer step (not ported yet: > 1 raises)")
+                   help="cameras per optimizer step (> 1: the batched step on a mesh)")
     p.add_argument("--mesh-data", type=int, dest="mesh_data")
     p.add_argument("--mesh-gauss", type=int, dest="mesh_gauss")
     p.add_argument("--scan-steps", type=int, dest="scan_steps",
@@ -186,15 +191,35 @@ def main(argv: list[str] | None = None) -> int:
 
 def run_headless(args: argparse.Namespace) -> int:
     """Mirrors run_headless_app (application.cpp:17-54): project -> setup -> train."""
-    from .core.project import create_new_project
-    from .device import resolve_device
-    from .training.trainer import Trainer, check_ported
+    from .parallel.distributed import initialize, shutdown
 
     params = params_from_args(args)
-    check_ported(params)
-    device = resolve_device(args.device)  # no card and no --device cpu: raise before I/O
+    # a world of 1 unless torchrun (or TPU_SPLAT_*) names one; no card and no --device
+    # cpu: raise before I/O
+    runtime = initialize(device=args.device)
+    try:
+        if runtime.world > 1 and not args.headless:
+            raise ValueError("the live viewer runs on one process: pass --headless when "
+                             f"training on {runtime.world} ranks")
+        return _train(args, params, runtime.device, lead=runtime.rank == 0)
+    finally:
+        shutdown()
+
+
+def _train(args: argparse.Namespace, params, device, lead: bool) -> int:
+    """Trains on this rank; rank 0 (`lead`) alone writes the parameters and the project."""
+    from .core.project import create_new_project
+    from .training.trainer import Trainer
 
     out_dir = Path(params.dataset.output_path or "output")
+    if not lead:
+        trainer = Trainer(params, device=device)
+        if args.resume:
+            trainer.resume(args.resume)
+        trainer.checkpoint_every = args.checkpoint_every
+        trainer.train()
+        return 0
+
     out_dir.mkdir(parents=True, exist_ok=True)
     params.save(out_dir / "training_params.json")
 

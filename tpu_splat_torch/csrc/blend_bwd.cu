@@ -17,6 +17,7 @@
 //   d/dca = dL/dsig dx^2 / 2          d/dcb = dL/dsig dx dy      d/dcc = dL/dsig dy^2 / 2
 //   d/dop = dL/da gauss (not clamped) d/d(r, g, b, depth) = w (gr, gg, gb, gd)
 // each summed over the tile's pixels. Gradients are computed and stored in float32.
+// Pixel centres are K2's: tile t sits at tile row t / grid_w + tile_y0 of the image.
 // Columns that no tile owns, and columns of chunks the forward never reached, are not
 // written: the wrapper hands in a zeroed gflat.
 //
@@ -68,7 +69,7 @@ template <int PPT>
 __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_bwd_kernel(
     const void* __restrict__ flat, bool is_bf16, long long stride,  // [rows, stride]
     const int* __restrict__ seg_start, const int* __restrict__ count,  // [T]
-    int grid_w, int chunk, int max_chunks,
+    int grid_w, int tile_y0, int chunk, int max_chunks,
     const float* __restrict__ chk,   // [T, P, max_chunks]
     const float* __restrict__ out,   // [T, P, 8]
     const float* __restrict__ gout,  // [T, P, 8]
@@ -85,7 +86,7 @@ __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_bwd_kernel(
   const int cnt = min(max(count[t], 0), max_chunks * chunk);
   const int nch = (cnt + chunk - 1) / chunk;
   const int tx0 = (t % grid_w) * L::kTile;
-  const int ty0 = (t / grid_w) * L::kTile;
+  const int ty0 = (t / grid_w + tile_y0) * L::kTile;  // global row of the tile
   const float rx0 = static_cast<float>(tx0 + L::rect_x(warp)) + 0.5f;
   const float ry0 = static_cast<float>(ty0 + L::rect_y(warp)) + 0.5f;
 
@@ -232,21 +233,22 @@ __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_bwd_kernel(
 
 extern "C" int tpu_splat_blend_bwd(const void* flat, int is_bf16, long long stride,
                                    const int* seg_start, const int* count, int n_tiles,
-                                   int grid_w, int tile_size, int chunk, int max_chunks,
-                                   const float* chk, const float* out, const float* gout,
-                                   float* gflat, long long gstride, cudaStream_t stream) {
+                                   int grid_w, int tile_y0, int tile_size, int chunk,
+                                   int max_chunks, const float* chk, const float* out,
+                                   const float* gout, float* gflat, long long gstride,
+                                   cudaStream_t stream) {
   if (n_tiles <= 0) return 0;
   if (chunk <= 0 || chunk > kMaxChunk || max_chunks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tile_size == Layout<1>::kTile) {
     blend_bwd_kernel<1><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, chk, out,
-        gout, gflat, gstride);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_y0, chunk, max_chunks, chk,
+        out, gout, gflat, gstride);
   } else if (tile_size == Layout<4>::kTile) {
     blend_bwd_kernel<4><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, chk, out,
-        gout, gflat, gstride);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_y0, chunk, max_chunks, chk,
+        out, gout, gflat, gstride);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,7 +6,9 @@
 // in blend_common.cuh rebuilds float features once per staged instance; the arithmetic
 // below is the same for both.
 //
-// Per tile t and pixel p (centre tile*ts + idx + 0.5), over the depth-sorted segment
+// Per tile t and pixel p (centre tile*ts + idx + 0.5; tile t sits at tile row
+// t / grid_w + tile_y0 of the image, so a window of tile rows blends at its global pixel
+// centres and culls on the global 8x4 sub-rectangle grid), over the depth-sorted segment
 // [seg_start[t], seg_start[t] + count[t]) walked in chunks of `chunk` instances:
 //   sigma = 0.5 (a dx^2 + c dy^2) + b dx dy,  alpha = min(op exp(-max(sigma, 0)), 0.999)
 //   skip if sigma < 0 or alpha < 1/255; stop BEFORE the instance with T (1 - alpha) < 1e-4
@@ -59,7 +61,7 @@ template <int PPT>
 __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_fwd_kernel(
     const void* __restrict__ flat, bool is_bf16, long long stride,  // [rows, stride]
     const int* __restrict__ seg_start, const int* __restrict__ count,  // [T]
-    int grid_w, int chunk, int max_chunks,
+    int grid_w, int tile_y0, int chunk, int max_chunks,
     float* __restrict__ out,   // [T, P, 8]
     float* __restrict__ chk) { // [T, P, max_chunks]
   using L = Layout<PPT>;
@@ -73,7 +75,7 @@ __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_fwd_kernel(
   const int cnt = min(max(count[t], 0), max_chunks * chunk);
   const int nch = (cnt + chunk - 1) / chunk;
   const int tx0 = (t % grid_w) * L::kTile;
-  const int ty0 = (t / grid_w) * L::kTile;
+  const int ty0 = (t / grid_w + tile_y0) * L::kTile;  // global row of the tile
   // pixel centre of the warp rectangle's top-left pixel
   const float rx0 = static_cast<float>(tx0 + L::rect_x(warp)) + 0.5f;
   const float ry0 = static_cast<float>(ty0 + L::rect_y(warp)) + 0.5f;
@@ -184,18 +186,21 @@ __global__ void __launch_bounds__(kThreads, PPT == 1 ? 1 : 3) blend_fwd_kernel(
 
 extern "C" int tpu_splat_blend_fwd(const void* flat, int is_bf16, long long stride,
                                    const int* seg_start, const int* count, int n_tiles,
-                                   int grid_w, int tile_size, int chunk, int max_chunks,
-                                   float* out, float* chk, cudaStream_t stream) {
+                                   int grid_w, int tile_y0, int tile_size, int chunk,
+                                   int max_chunks, float* out, float* chk,
+                                   cudaStream_t stream) {
   if (n_tiles <= 0) return 0;
   if (chunk <= 0 || chunk > kMaxChunk || max_chunks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tile_size == Layout<1>::kTile) {
     blend_fwd_kernel<1><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, out, chk);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_y0, chunk, max_chunks,
+        out, chk);
   } else if (tile_size == Layout<4>::kTile) {
     blend_fwd_kernel<4><<<n_tiles, kThreads, 0, stream>>>(
-        flat, is_bf16 != 0, stride, seg_start, count, grid_w, chunk, max_chunks, out, chk);
+        flat, is_bf16 != 0, stride, seg_start, count, grid_w, tile_y0, chunk, max_chunks,
+        out, chk);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -132,7 +132,9 @@ def kmeans_init(data: np.ndarray, k: int, seed: int = 0,
             pick()  # the first pick, run before the capture (warm-up)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: the live viewer's HTTP threads may render on the card meanwhile
+        # (their work is not captured; in the default mode it would void the capture)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             pick()
         for _ in range(k - 2):
             graph.replay()

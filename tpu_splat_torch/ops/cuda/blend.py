@@ -17,6 +17,10 @@ The table comes in two layouts, told apart by its dtype:
     those rounded values, so training differentiates a slightly perturbed rasterizer
     exactly.
 
+Tile t covers tile column t % grid_w and tile row t // grid_w + tile_y0 of the image:
+a window of tile rows (the multi-device render, `parallel/raster_mc.py`) blends at its
+global pixel centres with `tile_y0` its first row (0: the whole image).
+
 `blend_forward` returns out [T, P, 8] = (rgb, T_final, depth, 0, 0, 0) and
 chk [T, P, max_chunks], each chunk's entry transmittance (0 once the pixel has stopped,
 and for chunks never visited): the replay checkpoints of `blend_backward`, which returns
@@ -74,7 +78,8 @@ def unpack_features(flat: torch.Tensor) -> torch.Tensor:
     return torch.cat([f[B_MXH:B_OP:2] + f[B_MXL:B_OP:2], f[B_OP:]])
 
 
-def _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk):
+def _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk,
+                      tile_y0=0):
     rows = {torch.float32: NFEAT, torch.bfloat16: B_D + 1}.get(flat.dtype)
     if rows is None or flat.dim() != 2 or flat.shape[0] < rows:
         raise ValueError(f"flat must be float32 [>={NFEAT}, M] or bfloat16 [>={B_D + 1}, M], "
@@ -89,6 +94,8 @@ def _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunk
         raise ValueError(f"chunk must be one of {CHUNKS}, got {chunk}")
     if max_chunks < 1:
         raise ValueError("max_chunks must be >= 1")
+    if tile_y0 < 0:
+        raise ValueError(f"tile_y0 must be >= 0, got {tile_y0}")
 
 
 def tile_pixel_centers(n_tiles: int, grid_w: int, tile_size: int, dev, first_tile: int = 0):
@@ -195,11 +202,12 @@ def composite_chunk(a, valid, t_run, dead):
 
 @torch.no_grad()
 def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
-                        tile_size: int, max_chunks: int, chunk: int = 128):
+                        tile_size: int, max_chunks: int, chunk: int = 128, tile_y0: int = 0):
     """Plain version of K2, vectorised over batches of tiles: one [T, chunk, P]
     closed-form step per chunk (cumprod along the instance axis), as
     `tpu_splat/ops/blend.py` computes it. A bf16 table is unpacked to float32 first."""
-    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk,
+                      tile_y0)
     dev = flat.device
     p = tile_size * tile_size
     feat = unpack_features(flat)[:NFEAT]
@@ -209,7 +217,8 @@ def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: in
         start = seg_start[t0:t1].long()
         count = tile_count[t0:t1].clamp(0, max_chunks * chunk).long()
         nch = (count + chunk - 1) // chunk
-        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev, first_tile=t0)
+        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev,
+                                    first_tile=t0 + tile_y0 * grid_w)
         px, py = px[:, None, :], py[:, None, :]  # [T, 1, P]
 
         chk = torch.zeros((nt, p, max_chunks), dtype=torch.float32, device=dev)
@@ -234,17 +243,18 @@ def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: in
 
 
 def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
-                  tile_size: int, max_chunks: int, chunk: int = 128):
+                  tile_size: int, max_chunks: int, chunk: int = 128, tile_y0: int = 0):
     """K2. CPU tensors run the plain version; CUDA tensors launch `csrc/blend_fwd.cu`
     (one 256-thread block per tile) or raise. `flat` is float32 (F_* rows) or bfloat16
-    (B_* rows).
+    (B_* rows); `tile_y0` is the image's tile row of tile 0.
 
     -> (out [T, P, 8], chk [T, P, max_chunks]), both float32."""
     if flat.device.type == "cpu":
         return blend_forward_plain(flat, seg_start, tile_count, n_tiles=n_tiles,
                                    grid_w=grid_w, tile_size=tile_size,
-                                   max_chunks=max_chunks, chunk=chunk)
-    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+                                   max_chunks=max_chunks, chunk=chunk, tile_y0=tile_y0)
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk,
+                      tile_y0)
     require_cuda(flat, flat=flat, seg_start=seg_start, tile_count=tile_count)
     p = tile_size * tile_size
     out = torch.empty((n_tiles, p, 8), dtype=torch.float32, device=flat.device)
@@ -252,7 +262,8 @@ def blend_forward(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
     err = kernel("blend_fwd")(
         flat.data_ptr(), int(flat.dtype == torch.bfloat16), flat.stride(0),
         seg_start.data_ptr(), tile_count.data_ptr(),
-        n_tiles, grid_w, tile_size, chunk, max_chunks, out.data_ptr(), chk.data_ptr(),
+        n_tiles, grid_w, tile_y0, tile_size, chunk, max_chunks, out.data_ptr(),
+        chk.data_ptr(),
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     check(err, "blend_fwd")
@@ -273,7 +284,8 @@ def _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks):
 
 @torch.no_grad()
 def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
-                         grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128):
+                         grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128,
+                         tile_y0: int = 0):
     """Plain version of K3: an explicit replay from the checkpoints, chunk by chunk from
     the last to the first, vectorised over batches of tiles — the exact lane of
     `tpu_splat/ops/pallas/blend.py::_bwd_kernel` (stacked products, exact divides):
@@ -284,7 +296,8 @@ def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles
       dL/dsig = -a dL/da where op gauss < 0.999
 
     -> gflat [10, M] float32; columns owned by no tile are zero."""
-    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk,
+                      tile_y0)
     _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks)
     dev = flat.device
     feat = unpack_features(flat)[:NFEAT]
@@ -293,7 +306,8 @@ def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles
         nt = t1 - t0
         start = seg_start[t0:t1].long()
         count = tile_count[t0:t1].clamp(0, max_chunks * chunk).long()
-        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev, first_tile=t0)
+        px, py = tile_pixel_centers(nt, grid_w, tile_size, dev,
+                                    first_tile=t0 + tile_y0 * grid_w)
         px, py = px[:, None, :], py[:, None, :]  # [T, 1, P]
         g4 = gout[t0:t1][:, :, [0, 1, 2, 4]]  # [T, P, 4]: d/d(r, g, b, depth)
         carry = out[t0:t1, :, 3] * gout[t0:t1, :, 3]  # [T, P]: T_final * d/dT_final
@@ -334,7 +348,8 @@ def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles
 
 
 def blend_backward(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
-                   grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128):
+                   grid_w: int, tile_size: int, max_chunks: int, chunk: int = 128,
+                   tile_y0: int = 0):
     """K3. CPU tensors run the plain version; CUDA tensors launch `csrc/blend_bwd.cu`
     (one 256-thread block per tile) or raise. `flat`, the segments, `chk` and `out` are
     the forward's; `gout` [T, P, 8] holds d/d(rgb) in 0-2, d/dT_final in 3, d/d(depth)
@@ -345,8 +360,9 @@ def blend_backward(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
     if flat.device.type == "cpu":
         return blend_backward_plain(flat, seg_start, tile_count, chk, out, gout,
                                     n_tiles=n_tiles, grid_w=grid_w, tile_size=tile_size,
-                                    max_chunks=max_chunks, chunk=chunk)
-    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk)
+                                    max_chunks=max_chunks, chunk=chunk, tile_y0=tile_y0)
+    _check_blend_args(flat, seg_start, tile_count, n_tiles, tile_size, max_chunks, chunk,
+                      tile_y0)
     _check_backward_args(chk, out, gout, n_tiles, tile_size, max_chunks)
     require_cuda(flat, flat=flat, seg_start=seg_start, tile_count=tile_count, chk=chk,
                 out=out, gout=gout)
@@ -354,7 +370,7 @@ def blend_backward(flat, seg_start, tile_count, chk, out, gout, *, n_tiles: int,
     err = kernel("blend_bwd")(
         flat.data_ptr(), int(flat.dtype == torch.bfloat16), flat.stride(0),
         seg_start.data_ptr(), tile_count.data_ptr(),
-        n_tiles, grid_w, tile_size, chunk, max_chunks,
+        n_tiles, grid_w, tile_y0, tile_size, chunk, max_chunks,
         chk.data_ptr(), out.data_ptr(), gout.data_ptr(), gflat.data_ptr(), gflat.stride(0),
         torch.cuda.current_stream(flat.device).cuda_stream,
     )

@@ -36,9 +36,9 @@ _L = ctypes.c_longlong
 ENTRY_POINTS = {
     "expand": ("tpu_splat_expand", (_P, _P, _P, _I, _I, _P, _P, _P)),
     "blend_fwd": ("tpu_splat_blend_fwd",
-                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
+                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "blend_bwd": ("tpu_splat_blend_bwd",
-                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
+                  (_P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
     "segsum": ("tpu_splat_segsum", (_P, _I, _L, _P, _I, _I, _P, _P, _I, _P, _L, _P)),
     "gut_fwd": ("tpu_splat_gut_fwd",
                 (_P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P)),

@@ -158,12 +158,18 @@ def emission_tables(proj: Projected):
 
 def build_sorted_instances(
     proj: Projected, grid_w: int, grid_h: int, max_instances: int, tile_size: int,
-    expand: str = "kernel",
+    expand: str = "kernel", tile_y0: int = 0, image_tiles: int | None = None,
 ) -> SortedInstances:
     """Instance emission + (tile, depth) sort.
 
     expand="kernel" goes through K1's wrapper (the kernel on a CUDA tensor, its plain
-    version on a CPU tensor); expand="plain" runs the plain version on any device."""
+    version on a CPU tensor); expand="plain" runs the plain version on any device.
+    `tile_y0`: the image's tile row of the grid's first row. Under the multi-device
+    window (`parallel/raster_mc.py::_window_proj`) `proj`'s tile rects are window-local
+    and the contribution test runs at the global rows, as the JAX package's
+    (raster.py:339-343). `image_tiles`: the tile count of the whole image the grid is a
+    window of, which sizes the packed sort key's tile and depth bits, so that each tile's
+    instances sort as they do in the whole frame (None: the grid is the whole image)."""
     if expand not in ("kernel", "plain"):
         raise ValueError(f"expand must be 'kernel' or 'plain', got {expand!r}")
     dev = proj.depth.device
@@ -190,8 +196,8 @@ def build_sorted_instances(
 
     # 3. exact per-tile contribution test
     contrib = will_contribute(
-        frows[R_MX:R_MY + 1].T, frows[R_CA:R_CC + 1].T, tile_x, tile_y, frows[R_PTH],
-        tile_size,
+        frows[R_MX:R_MY + 1].T, frows[R_CA:R_CC + 1].T, tile_x, tile_y + tile_y0,
+        frows[R_PTH], tile_size,
     )
     valid = in_range & contrib
     tile_id = torch.where(valid, tile_y * grid_w + tile_x, n_tiles)
@@ -199,7 +205,8 @@ def build_sorted_instances(
     # 4. (tile id, depth) sort, stable: depth ties break in emission order. When tile and
     # depth bits fit one int32 the two keys pack into one: tile id high, the top bits of
     # the positive float32 depth's bit pattern (monotone for positive floats) below.
-    tb = max(int(n_tiles).bit_length(), 1)  # bits for tile id incl. sentinel n_tiles
+    # bits for the tile id incl. the sentinel n_tiles (the whole image's, under a window)
+    tb = max(int(max(n_tiles, image_tiles or 0)).bit_length(), 1)
     db = 31 - tb
     if db >= 16:
         depth_bits = torch.clamp_min(frows[R_DEPTH], 0.0).view(torch.int32)

@@ -153,9 +153,11 @@ def ut_project(
     return proj, compensation
 
 
-def _tile_pixel_points(grid_w: int, grid_h: int, tile_size: int, dev):
-    """Pixel centres [T, P, 2] (x, y), row-major pixels within each tile."""
-    return torch.stack(tile_pixel_centers(grid_w * grid_h, grid_w, tile_size, dev), dim=-1)
+def _tile_pixel_points(grid_w: int, grid_h: int, tile_size: int, dev, tile_y0: int = 0):
+    """Pixel centres [T, P, 2] (x, y), row-major pixels within each tile, of grid_h tile
+    rows from the image's tile row `tile_y0`."""
+    return torch.stack(tile_pixel_centers(grid_w * grid_h, grid_w, tile_size, dev,
+                                          first_tile=tile_y0 * grid_w), dim=-1)
 
 
 def gut_feature_table(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN,
@@ -184,11 +186,12 @@ def gut_feature_table(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN,
 @torch.no_grad()
 def pixel_world_rays(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
                      shutter_pose, *, grid_w: int, grid_h: int, tile_size: int, width: int,
-                     height: int):
+                     height: int, tile_y0: int = 0):
     """Per-pixel world rays of every tile through the camera model: [T, P, 4]
     (dx, dy, dz, 0), or [T, P, 8] with the per-pixel origin offsets (dox, doy, doz, 0) of
-    a rolling shutter or an orthographic camera (Cameras.cuh:346-414)."""
-    pix = _tile_pixel_points(grid_w, grid_h, tile_size, w2c.device)  # [T,P,2]
+    a rolling shutter or an orthographic camera (Cameras.cuh:346-414). The tiles are
+    grid_h rows from the image's tile row `tile_y0` (a window of the multi-device render)."""
+    pix = _tile_pixel_points(grid_w, grid_h, tile_size, w2c.device, tile_y0)  # [T,P,2]
     delta_o = None
     if cam_params.shutter != "global" and shutter_pose is not None:
         q_s, t_s, q_e, t_e = shutter_pose

@@ -87,7 +87,8 @@ def blend_inputs(inst: SortedInstances, gtab: torch.Tensor, *, k_max: int, chunk
 class BlendTiles(torch.autograd.Function):
     """Feature pack + K2 forward; K3 -> `segmented_grad_reduce` (K4) backward.
 
-    forward(gtab [NFEAT, N], inst, dims) -> out [T, P, 8] (rgb, T_final, depth, 0, 0, 0).
+    forward(gtab [NFEAT, N], inst, dims) -> out [T, P, 8] (rgb, T_final, depth, 0, 0, 0);
+    `dims` may carry `tile_y0`, the image's tile row of the first tile (a window of rows).
     The only differentiable input is `gtab`; its gradient is the per-Gaussian sum of the
     per-instance gradient rows, the exact transpose of the pack's gather (with
     `pack_bf16` the forward and the backward both see the bf16-rounded features, and the
@@ -99,7 +100,8 @@ class BlendTiles(torch.autograd.Function):
             inst, gtab, k_max=dims["k_max"], chunk=dims["chunk"],
             pack_bf16=dims["pack_bf16"])
         kw = dict(n_tiles=dims["grid_w"] * dims["grid_h"], grid_w=dims["grid_w"],
-                  tile_size=dims["tile_size"], max_chunks=max_chunks, chunk=dims["chunk"])
+                  tile_size=dims["tile_size"], max_chunks=max_chunks, chunk=dims["chunk"],
+                  tile_y0=dims.get("tile_y0", 0))
         fwd = blend_forward if impl == "kernel" else blend_forward_plain
         out, chk = fwd(flat, seg_start, count, **kw)
         ctx.save_for_backward(flat, seg_start, count, chk, out)
@@ -116,11 +118,11 @@ class BlendTiles(torch.autograd.Function):
 
 def blend_instances(inst: SortedInstances, gtab: torch.Tensor, *, grid_w: int, grid_h: int,
                     tile_size: int, k_max: int, chunk: int, impl: str = "kernel",
-                    pack_bf16: bool = False):
-    """Feature pack + K2, differentiable in `gtab`.
-    -> (tile_colors [T, P, 3], tile_alpha [T, P], tile_depth [T, P])."""
+                    pack_bf16: bool = False, tile_y0: int = 0):
+    """Feature pack + K2, differentiable in `gtab`, over grid_h tile rows from the image's
+    tile row `tile_y0`. -> (tile_colors [T, P, 3], tile_alpha [T, P], tile_depth [T, P])."""
     dims = dict(grid_w=grid_w, grid_h=grid_h, tile_size=tile_size, k_max=k_max,
-                chunk=chunk, pack_bf16=pack_bf16)
+                chunk=chunk, pack_bf16=pack_bf16, tile_y0=tile_y0)
     out = BlendTiles.apply(gtab, inst, dims, impl)
     return out[:, :, 0:3], 1.0 - out[:, :, 3], out[:, :, 4]
 

@@ -64,7 +64,11 @@ class CameraDataset:
 
 class InfiniteDataLoader:
     """Infinite random sampler + worker-thread prefetch
-    (dataset.hpp:116-135 + create_infinite_dataloader_from_dataset :247-259)."""
+    (dataset.hpp:116-135 + create_infinite_dataloader_from_dataset :247-259).
+
+    Samples come out in the order their indices were drawn, whichever worker loads them
+    first: every process of a multi-device run that seeds its loader alike sees the same
+    sequence, and a resumed run continues the saved one's."""
 
     def __init__(
         self,
@@ -81,6 +85,9 @@ class InfiniteDataLoader:
         self._perm: list[int] = []
         for _ in range(skip):
             self._next_index()
+        self._drawn = 0  # sequence number of the next index drawn
+        self._next_out = 0  # sequence number of the next sample handed out
+        self._early: dict[int, object] = {}  # loaded ahead of their turn
         self._stop = threading.Event()
         self._workers = [
             threading.Thread(target=self._worker, daemon=True)
@@ -90,21 +97,29 @@ class InfiniteDataLoader:
             w.start()
 
     def _next_index(self) -> int:
+        """The next dataset index of the shuffled stream (the caller holds the lock, or
+        no worker runs yet)."""
+        if not self._perm:
+            self._perm = list(self._rng.permutation(len(self.dataset)))
+        return int(self._perm.pop())
+
+    def _next_draw(self) -> tuple[int, int]:
+        """(sequence number, dataset index), drawn together under the lock."""
         with self._index_lock:
-            if not self._perm:
-                self._perm = list(self._rng.permutation(len(self.dataset)))
-            return int(self._perm.pop())
+            seq = self._drawn
+            self._drawn += 1
+            return seq, self._next_index()
 
     def _worker(self) -> None:
         while not self._stop.is_set():
-            idx = self._next_index()
+            seq, idx = self._next_draw()
             try:
                 sample = self.dataset.get(idx)
             except Exception as e:  # surface loader errors to the consumer
                 sample = e
             while not self._stop.is_set():
                 try:
-                    self._queue.put(sample, timeout=0.5)
+                    self._queue.put((seq, sample), timeout=0.5)
                     break
                 except queue.Full:
                     continue
@@ -113,7 +128,13 @@ class InfiniteDataLoader:
         return self
 
     def __next__(self) -> CameraSample:
-        item = self._queue.get()
+        # the consumer keeps draining the queue, so the worker that holds the next
+        # sequence number is never blocked on a full queue
+        while self._next_out not in self._early:
+            seq, item = self._queue.get()
+            self._early[seq] = item
+        item = self._early.pop(self._next_out)
+        self._next_out += 1
         if isinstance(item, Exception):
             raise item
         return item

@@ -22,11 +22,15 @@ def photometric_loss(rendered: torch.Tensor, gt: torch.Tensor, lambda_dssim: flo
 
 
 def regularization_losses(
-    params: dict[str, torch.Tensor], alive: torch.Tensor, scale_reg: float, opacity_reg: float
+    params: dict[str, torch.Tensor], alive: torch.Tensor, scale_reg: float, opacity_reg: float,
+    n_alive: torch.Tensor | None = None,
 ):
-    """scale_reg * mean(scaling) + opacity_reg * mean(opacity) (trainer.cpp:133-160)."""
+    """scale_reg * mean(scaling) + opacity_reg * mean(opacity) (trainer.cpp:133-160).
+
+    `n_alive`: the alive count the means divide by, when `params` are one shard of the
+    pool (the batched step's gauss shard: its share of the whole pool's means)."""
     alive_f = alive.to(params["means"].dtype)
-    n = torch.clamp_min(torch.sum(alive_f), 1.0)
+    n = torch.clamp_min(torch.sum(alive_f) if n_alive is None else n_alive, 1.0)
     loss = torch.zeros((), dtype=params["means"].dtype, device=alive.device)
     if scale_reg > 0:
         scaling = torch.exp(params["scaling_raw"])  # [C,3]

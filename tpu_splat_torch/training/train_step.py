@@ -172,6 +172,9 @@ class StepStats(NamedTuple):
     total_instances: torch.Tensor
     max_tile_count: torch.Tensor
     n_visible: torch.Tensor
+    # the batched step's largest per-shard visible count, held against the plan's
+    # gather_budget; == n_visible on the single-camera path
+    n_shard_visible: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -182,6 +185,9 @@ class RasterPlan:
     k_max: int
     chunk: int = 64
     tile_size: int = 16
+    # the batched step's per-shard slot budget of the visible compaction before the
+    # all-gather (parallel/raster_mc.py::compact_visible); None gathers the whole shard
+    gather_budget: Optional[int] = None
     # bf16 hi/lo feature pack (ops/cuda/blend.py B_* layout): halves the pack gather and
     # the kernels' feature reads at <=0.4% forward rounding on opacity/color/depth
     # (mean2d/conic reconstruct ~f32)
@@ -373,6 +379,7 @@ def train_step(
         total_instances=out.aux.total_instances,
         max_tile_count=out.aux.max_tile_count,
         n_visible=out.aux.n_visible,
+        n_shard_visible=out.aux.n_visible,
     )
     return new_ts, stats
 

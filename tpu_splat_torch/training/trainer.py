@@ -38,8 +38,16 @@ exactly against `steps_dispatched`: `eval_renders`, `timelapse_renders`, and
 `viewer_renders`, which the live viewer (`viewer.py::attach`) adds to from its HTTP
 threads.
 
-Still to port, and raising NotImplementedError when asked for (`check_ported`): batched
-multi-device steps (ROADMAP.md Queue 1 item 9).
+Batched steps (`--batch-size`, `--mesh-data`, `--mesh-gauss`, or a run of several
+torch.distributed ranks, one process each) go through `parallel/step.py` on a (data,
+gauss) mesh, built from the ranks with the JAX Trainer's rule (`parallel/mesh.py::
+trainer_mesh_shape`): one card runs `--batch-size 4` on a 1x1 mesh. The state is sharded
+over gauss; every rank draws the same sample sequence and keeps its data group's cameras;
+a step also checks the per-shard visible count against the plan's `gather_budget`, which
+grows (and the step is redone) as the instance budget does. The topology hooks run on the
+gathered state, alike on every rank, which then re-shards it. Rank 0 alone evaluates,
+saves, writes the timelapse and emits events, from the gathered state; the other ranks
+wait at a barrier.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import TrainingParameters
 from ..core.splat import SplatState, init_from_pointcloud, init_random
@@ -64,6 +73,9 @@ from ..io.ply import load_splat_ply, save_splat_ply
 from ..ops.cameras import CameraParams
 from ..ops.gut import rasterize_gut
 from ..ops.rasterize import rasterize
+from ..parallel.mesh import (gather_train_state, make_mesh, shard_train_state,
+                             trainer_mesh_shape)
+from ..parallel.step import make_batched_train_step
 from ..utils import events as ev
 from ..utils.async_io import writer
 from ..utils.log import get_logger
@@ -127,15 +139,6 @@ def _inv_weight_piecewise(step: int, max_steps: int) -> float:
     return max(0.0, 0.5 + (0.0 - 0.5) * (phase - 0.5) / 0.25)
 
 
-def check_ported(params: TrainingParameters) -> None:
-    """Raise NotImplementedError for a setting whose code is not ported yet."""
-    opt = params.optimization
-    if opt.batch_size > 1 or opt.mesh_data > 1 or opt.mesh_gauss > 1:
-        raise NotImplementedError(
-            "batched multi-device steps (--batch-size, --mesh-*) are not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
-
-
 @dataclass
 class PendingStep:
     iteration: int
@@ -148,22 +151,23 @@ class PendingStep:
 class Trainer:
     def __init__(self, params: TrainingParameters, load_result: Optional[LoadResult] = None,
                  device: str | torch.device | None = None):
-        check_ported(params)
         self.device = resolve_device(device)
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.is_lead = not dist.is_initialized() or dist.get_rank() == 0
         self.params = params
         opt = params.optimization.apply_steps_scaler()
         self.opt = opt
         self.step_cfg = StepConfig.from_params(opt)
 
         if load_result is None:
-            ev.emit(ev.DatasetLoadStarted(path=params.dataset.data_path))
+            self._emit(ev.DatasetLoadStarted(path=params.dataset.data_path))
             load_result = load(params.dataset.data_path, params.dataset.images, opt.rc)
             if load_result.scene is not None:
-                ev.emit(ev.DatasetLoadCompleted(
+                self._emit(ev.DatasetLoadCompleted(
                     path=params.dataset.data_path,
                     n_cameras=len(load_result.scene.cameras),
                 ))
-                ev.emit(ev.SceneLoaded(
+                self._emit(ev.SceneLoaded(
                     path=params.dataset.data_path,
                     n_cameras=len(load_result.scene.cameras),
                     n_points=int(load_result.scene.points.shape[0]),
@@ -235,6 +239,35 @@ class Trainer:
             tile_size=opt.tile_size,
             pack_bf16=True,  # the JAX trainer's default (trainer.py:205)
         )
+        # batched steps over a (data, gauss) mesh of the run's ranks (trainer.py:207-256)
+        self.mesh = None
+        self._batched_step = None
+        self.batch_size = max(1, opt.batch_size)
+        self.shard_capacity = splat.capacity
+        if self.batch_size > 1 or opt.mesh_gauss > 1 or opt.mesh_data > 1 or self.world > 1:
+            data_ax, gauss_ax = trainer_mesh_shape(self.world, self.batch_size,
+                                                   opt.mesh_data, opt.mesh_gauss)
+            if opt.gut:
+                # one (model, shutter) for the whole batch; per-camera coefficients
+                variants = {(CameraParams.from_camera(c).model,
+                             CameraParams.from_camera(c).shutter) for c in self.train_cams}
+                if len(variants) != 1:
+                    raise ValueError(
+                        f"batched GUT requires a uniform camera model; got {variants}")
+                (model, shutter), = variants
+                if shutter != "global" or model == "ortho":
+                    raise ValueError(
+                        "batched GUT supports global-shutter non-ortho models; use "
+                        "--batch-size 1 for rolling shutter / ORTHO")
+            self.mesh = make_mesh(self.world, data=data_ax)
+            self.state = shard_train_state(self.mesh, self.state)
+            self._batched_step = make_batched_train_step(self.mesh)
+            self.shard_capacity = max(1, splat.capacity // gauss_ax)
+            self.plan = dataclasses.replace(
+                self.plan, gather_budget=min(_next_bucket(max(n0 // gauss_ax, 1) * 2),
+                                             self.shard_capacity))
+            log.info("batched steps on a mesh of %s (batch %d, gather_budget %d)",
+                     self.mesh.shape, self.batch_size, self.plan.gather_budget)
         self.evaluator = MetricsEvaluator(params.dataset.output_path or ".", device=dev)
         self._bg_rng = np.random.default_rng(1234)
         self._loss_hist: list[float] = []
@@ -269,7 +302,7 @@ class Trainer:
             "scene_scale %.3f", dev, len(self.train_cams), len(self.val_cams), n0,
             splat.capacity, splat.scene_scale,
         )
-        ev.emit(ev.TrainerReady(
+        self._emit(ev.TrainerReady(
             n_train_cameras=len(self.train_cams), n_val_cameras=len(self.val_cams),
             n_gaussians=n0,
         ))
@@ -278,6 +311,8 @@ class Trainer:
         """Continue from a checkpoint: its state, and the plan and data-loader position
         its `extra` holds (a checkpoint without them keeps this Trainer's)."""
         self.state, extra = checkpoint.load_checkpoint(path, device=self.device)
+        if self.mesh is not None:
+            self.state = shard_train_state(self.mesh, self.state)
         if "plan_max_instances" in extra:
             self.plan = dataclasses.replace(self.plan,
                                             max_instances=int(extra["plan_max_instances"]),
@@ -288,8 +323,12 @@ class Trainer:
         log.info("resumed from %s at iteration %d", path, self.state.iteration)
 
     def save_checkpoint(self, path: Path, iteration: int) -> None:
-        """The state with no step in flight, the plan and the loader's position."""
-        checkpoint.save_checkpoint(path, self.state, extra={
+        """The state with no step in flight, the plan and the loader's position; in a
+        batched run the gathered state, written by rank 0 alone."""
+        state = self.full_state()
+        if not self.is_lead:
+            return
+        checkpoint.save_checkpoint(path, state, extra={
             "plan_max_instances": self.plan.max_instances,
             "plan_k_max": self.plan.k_max,
             "samples_drawn": self.samples_drawn,
@@ -298,7 +337,32 @@ class Trainer:
         if self.project is not None:
             self.project.add_checkpoint(path)
         log.info("checkpoint saved: %s", path)
-        ev.emit(ev.CheckpointSaved(path=str(path), iteration=iteration))
+        self._emit(ev.CheckpointSaved(path=str(path), iteration=iteration))
+
+    def _control_flags(self) -> tuple[bool, bool, bool]:
+        """(stop, pause, save) as the event bus set them on this process, or in a run of
+        several ranks on any of them, so that every rank leaves, waits or saves (a
+        gather) at the same iteration: a rank alone in a collective would hang the run."""
+        flags = [f.is_set() for f in (self._stop_flag, self._pause_flag, self._save_flag)]
+        if self.mesh is not None:
+            flags = self.mesh.any_rank(flags)
+        return tuple(flags)
+
+    def _emit(self, event) -> None:
+        """Events come from rank 0 alone."""
+        if self.is_lead:
+            ev.emit(event)
+
+    def full_state(self) -> TrainState:
+        """The whole state: in a batched run gathered from the gauss shards (a collective:
+        every rank calls it at the same point), else the state itself."""
+        if self.mesh is None:
+            return self.state
+        return gather_train_state(self.mesh, self.state)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @staticmethod
     def _state_from_raw(raw: dict, scene_center, capacity: int, sh_degree: int,
@@ -373,6 +437,35 @@ class Trainer:
         return PendingStep(iteration=iteration, prev_state=prev, rng_state=rng_state,
                            stats=stats, plan=self.plan)
 
+    def _dispatch_batched(self, samples, iteration: int) -> PendingStep:
+        """One optimizer step over `batch_size` cameras on the mesh (trainer.py:354-391).
+        Every rank holds the same samples; the step renders its data group's."""
+        prev, rng_state = self.state, self.state.rng.get_state()
+        cams = [s.camera for s in samples]
+        w, h = cams[0].image_width, cams[0].image_height
+        if any(c.image_width != w or c.image_height != h for c in cams):
+            raise ValueError("batched training requires uniform image sizes")
+        cfg, dist_coeffs = self.step_cfg, None
+        if self.step_cfg.gut:
+            pairs = [self._gut_cfg_for(c) for c in cams]
+            cfg = pairs[0][0]  # a uniform (model, shutter), checked at init
+            dist_coeffs = torch.stack([p[1] for p in pairs])
+        self.state, stats = self._batched_step(
+            self.state,
+            np.stack([s.image for s in samples]),
+            np.stack([c.world_view_transform for c in cams]).astype(np.float32),
+            np.stack([c.cam_position for c in cams]).astype(np.float32),
+            np.asarray([[s.fx, s.fy, s.cx, s.cy] for s in samples], np.float32),
+            self._device(self.background_for_step(iteration)),
+            [s.index for s in samples],
+            dist_coeffs,
+            width=w, height=h, plan=self.plan, opt=cfg,
+            total_iterations=self.opt.iterations,
+        )
+        self.steps_dispatched += 1
+        return PendingStep(iteration=iteration, prev_state=prev, rng_state=rng_state,
+                           stats=stats, plan=self.plan)
+
     def _scan_chunk(self, it: int, total: int, progress_every: int) -> int:
         """Steps foldable into one dispatch from `it`: stop at the FIRST iteration that
         any host hook fires on (that iteration becomes the chunk's last step, so the
@@ -433,6 +526,7 @@ class Trainer:
             total_instances=stats.total_instances.max(),
             max_tile_count=stats.max_tile_count.max(),
             n_visible=stats.n_visible.max(),
+            n_shard_visible=stats.n_shard_visible.max(),
         )
         return PendingStep(iteration=iteration, prev_state=prev, rng_state=rng_state,
                            stats=reduced, plan=self.plan)
@@ -467,6 +561,18 @@ class Trainer:
             redo = max_tile <= k_cap  # beyond capacity a redo cannot help
         elif max_tile > 0.85 * new_plan.k_max and new_plan.k_max * 2 <= k_cap:
             new_plan = dataclasses.replace(new_plan, k_max=new_plan.k_max * 2)
+        # batched: the per-shard visible count against the compaction budget
+        if plan.gather_budget is not None:
+            nsv = int(pending.stats.n_shard_visible)
+            if nsv > plan.gather_budget:
+                new_plan = dataclasses.replace(
+                    new_plan,
+                    gather_budget=min(_next_bucket(int(nsv * 1.3)), self.shard_capacity))
+                redo = True
+            elif nsv > 0.85 * plan.gather_budget and new_plan.gather_budget < self.shard_capacity:
+                new_plan = dataclasses.replace(
+                    new_plan, gather_budget=min(_next_bucket(int(plan.gather_budget * 1.3)),
+                                                self.shard_capacity))
         if new_plan != plan:
             log.info(
                 "raster plan %s -> %s at iter %d (instances %d, max tile %d)%s",
@@ -510,7 +616,18 @@ class Trainer:
         self._loss_hist.extend(chk.stats.loss.reshape(-1).tolist())
 
     def _topology_hooks(self, it: int) -> None:
-        """Strategy + sparsity schedule (runs with no steps in flight)."""
+        """Strategy + sparsity schedule (runs with no steps in flight). In a batched run
+        on the gathered state, alike on every rank (the same state and generator), then
+        re-sharded."""
+        if self.mesh is not None:
+            self.state = self.full_state()
+        try:
+            self._run_topology_hooks(it)
+        finally:
+            if self.mesh is not None:
+                self.state = shard_train_state(self.mesh, self.state)
+
+    def _run_topology_hooks(self, it: int) -> None:
         opt = self.opt
         if opt.strategy == "mcmc":
             if strategy_mcmc.is_refining(it, opt.start_refine, opt.stop_refine,
@@ -557,7 +674,7 @@ class Trainer:
         counts = {k: int(v) for k, v in info.items()}
         self.refine_log.append(dict(iteration=it, kind=kind, **counts))
         log.debug("%s refine @%d: %s", kind, it, counts)
-        ev.emit(ev.ModelUpdated(iteration=it, n_alive=counts["n_alive"]))
+        self._emit(ev.ModelUpdated(iteration=it, n_alive=counts["n_alive"]))
 
     def _needs_topology_hook(self, it: int) -> bool:
         opt = self.opt
@@ -590,6 +707,12 @@ class Trainer:
     def _dispatch(self, loader, it: int, total: int, progress_every: int,
                   pending: list[PendingStep]) -> int:
         """Dispatch the step or chunk that starts at `it`; -> its last iteration."""
+        if self.mesh is not None:
+            samples = [self._next_sample(loader) for _ in range(self.batch_size)]
+            t0 = time.perf_counter()
+            pending.append(self._dispatch_batched(samples, it))
+            self.timings["dispatch"] += time.perf_counter() - t0
+            return it
         k = self._scan_chunk(it, total, progress_every)
         samples = [self._next_sample(loader) for _ in range(k)]
         t0 = time.perf_counter()
@@ -610,7 +733,7 @@ class Trainer:
         )
         out_dir = Path(self.params.dataset.output_path or "output")
         out_dir.mkdir(parents=True, exist_ok=True)
-        ev.emit(ev.TrainingStarted(total_iterations=self.total_iterations))
+        self._emit(ev.TrainingStarted(total_iterations=self.total_iterations))
         pending: list[PendingStep] = []
         t0 = time.time()
         it = self.state.iteration  # > 1 when resumed from a checkpoint
@@ -642,12 +765,12 @@ class Trainer:
                 if it % progress_every == 0 and self._loss_hist:
                     rate = it / (time.time() - t0)
                     self._live_rate = rate  # the live viewer's /status
-                    n_alive = int(self.state.splat.n_alive())
+                    n_alive = self.n_alive()
                     log.info(
                         "iter %d/%d loss %.4f alive %d %.2f it/s",
                         it, total, self._loss_hist[-1], n_alive, rate,
                     )
-                    ev.emit(ev.TrainingProgress(
+                    self._emit(ev.TrainingProgress(
                         iteration=it, total_iterations=total,
                         loss=self._loss_hist[-1], n_alive=n_alive, iters_per_s=rate,
                     ))
@@ -659,16 +782,18 @@ class Trainer:
                     t1 = time.perf_counter()
                     self._render_timelapse(it, out_dir)
                     self.timings["timelapse"] += time.perf_counter() - t1
-                if self._stop_flag.is_set():
+                stop, pause, save = self._control_flags()
+                if stop:
                     log.info("stop requested at iter %d", it)
-                    ev.emit(ev.TrainingStopped(iteration=it))
+                    self._emit(ev.TrainingStopped(iteration=it))
                     break
-                if self._pause_flag.is_set():
-                    ev.emit(ev.TrainingPaused(iteration=it))
-                    while self._pause_flag.is_set() and not self._stop_flag.is_set():
+                if pause:
+                    self._emit(ev.TrainingPaused(iteration=it))
+                    while pause and not stop:
                         time.sleep(0.1)
-                    ev.emit(ev.TrainingResumed(iteration=it))
-                if self._save_flag.is_set():
+                        stop, pause, save = self._control_flags()
+                    self._emit(ev.TrainingResumed(iteration=it))
+                if save:
                     self._save_flag.clear()
                     redo = self._flush_pending(pending)
                     if redo is not None:
@@ -706,19 +831,21 @@ class Trainer:
             # the JAX trainer, the last check only records, and the history shows it
             self._flush_pending(pending)
             t1 = time.perf_counter()
-            self.save_ply(out_dir / "splat_final.ply")
+            final = self.full_state()
+            self.save_ply(out_dir / "splat_final.ply", final)
             self.timings["save"] += time.perf_counter() - t1
-            ev.emit(ev.TrainingFinished(iteration=it - 1))
-            if opt.save_sog:
+            self._emit(ev.TrainingFinished(iteration=it - 1))
+            if opt.save_sog and self.is_lead:
                 from ..io.sog import save_sog
 
                 t1 = time.perf_counter()
-                save_sog(out_dir / "splat_final.sog", self._alive_arrays(),
+                save_sog(out_dir / "splat_final.sog", self._alive_arrays(final),
                          kmeans_iterations=opt.sog_iterations, device=self.device,
                          timings=self.sog_timings)
                 self.timings["save"] += time.perf_counter() - t1
-            if opt.enable_eval:
+            if opt.enable_eval and self.is_lead:
                 self.evaluator.save_report()
+            self._barrier()
         finally:
             loader.close()
             for unsubscribe in self._unsubscribe:
@@ -727,16 +854,26 @@ class Trainer:
 
     # ------------------------------------------------------------- eval/save
 
-    def render_camera(self, sample) -> torch.Tensor:
-        """An eval render of `sample`'s camera (counted in `eval_renders`)."""
+    def n_alive(self) -> int:
+        """The alive count of the whole pool (a collective of the gauss group in a
+        batched run)."""
+        count = self.state.splat.n_alive()
+        if self.mesh is not None:
+            count = self.mesh.all_reduce(count, "gauss")
+        return int(count)
+
+    def render_camera(self, sample, state: TrainState | None = None) -> torch.Tensor:
+        """An eval render of `sample`'s camera from `state` (the Trainer's when None;
+        counted in `eval_renders`)."""
         self.eval_renders += 1
-        return self._render_sample(sample)
+        return self._render_sample(sample, state)
 
     @torch.no_grad()
-    def _render_sample(self, sample) -> torch.Tensor:
+    def _render_sample(self, sample, state: TrainState | None = None) -> torch.Tensor:
         cam = sample.camera
-        splat = self.state.splat
-        sh_deg = active_sh_degree(self.state.iteration, self.opt.sh_degree_interval,
+        state = self.state if state is None else state
+        splat = state.splat
+        sh_deg = active_sh_degree(state.iteration, self.opt.sh_degree_interval,
                                   splat.max_sh_degree)
         args = (
             splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw,
@@ -762,10 +899,16 @@ class Trainer:
         return out.image
 
     def evaluate(self, iteration: int):
-        ev.emit(ev.EvaluationStarted(iteration=iteration, num_images=len(self.val_dataset)))
+        """Scores the val split on rank 0 (from the gathered state in a batched run; the
+        other ranks return None at the barrier)."""
+        state = self.full_state()
+        if not self.is_lead:
+            self._barrier()
+            return None
+        self._emit(ev.EvaluationStarted(iteration=iteration, num_images=len(self.val_dataset)))
         samples = (self.val_dataset.get(i) for i in range(len(self.val_dataset)))
         result = self.evaluator.evaluate(
-            iteration, self.render_camera, samples,
+            iteration, lambda s: self.render_camera(s, state), samples,
             save_images=self.opt.enable_save_eval_images,
         )
         log.info(
@@ -774,10 +917,11 @@ class Trainer:
             f"{result.lpips:.4f}" if result.lpips is not None else "n/a",
             result.num_images, result.elapsed_s,
         )
-        ev.emit(ev.EvaluationCompleted(
+        self._emit(ev.EvaluationCompleted(
             iteration=iteration, psnr=result.psnr, ssim=result.ssim,
             lpips=result.lpips, num_images=result.num_images,
         ))
+        self._barrier()
         return result
 
     # -------------------------------------------------------------- timelapse
@@ -791,26 +935,35 @@ class Trainer:
         """Render the watched training views (trainer.cpp:812-846) to
         `timelapse/<image stem>/<it:06d>.png`; the PNG writes run on the artifact writer."""
         wanted = set(self.params.dataset.timelapse_images)
+        state = self.full_state()
+        if not self.is_lead:
+            self._barrier()
+            return
         for idx, cam in enumerate(self.train_cams):
             if cam.image_name not in wanted and Path(cam.image_name).stem not in wanted:
                 continue
             sample = self.train_dataset.get(idx)
             self.timelapse_renders += 1
-            img = torch.clamp(self._render_sample(sample), 0, 1).cpu().numpy()
+            img = torch.clamp(self._render_sample(sample, state), 0, 1).cpu().numpy()
             d = out_dir / "timelapse" / Path(cam.image_name).stem
             d.mkdir(parents=True, exist_ok=True)
             writer().submit(save_image, str(d / f"{it:06d}.png"), img)
+        self._barrier()
 
-    def _alive_arrays(self) -> dict:
-        splat = self.state.splat
+    def _alive_arrays(self, state: TrainState | None = None) -> dict:
+        splat = (self.state if state is None else state).splat
         alive = splat.alive
         return {k: v[alive].cpu().numpy() for k, v in splat.params().items()}
 
-    def save_ply(self, path: str | Path) -> None:
+    def save_ply(self, path: str | Path, state: TrainState | None = None) -> None:
         """Device->host gather now; the disk write runs on the artifact writer thread
         (reference: detached save thread, splat_data.cpp:455-477). train() flushes the
-        writer before returning."""
-        a = self._alive_arrays()
+        writer before returning. In a batched run rank 0 writes the gathered state
+        (`state`, gathered here when None); the other ranks write nothing."""
+        state = self.full_state() if state is None else state
+        if not self.is_lead:
+            return
+        a = self._alive_arrays(state)
         n = a["means"].shape[0]
 
         def _write():
