@@ -99,6 +99,12 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    and resumes training: the timelapse PNGs, `splat_final.sog` loaded and rendered,
    /status iterations rising, K1 and K2 once a step and once more each eval, timelapse and
    viewer render;
+   `quality-floor`, the JAX package's CI quality gate (`tests/test_io_and_trainer.py::
+   test_trainer_quality_floor_raytraced`) through `Trainer`: the raytraced capture of
+   `tpu_splat_torch/tools/synth_capture.py` (8 views at 48x48), MCMC for 600 iterations,
+   evals at 150 and 600; the final PSNR above 11.5 dB and 3 dB above the first, K1-K4
+   once a step and K1, K2 once more an eval render; its line names the card and its
+   power limit;
 10a. the batched, multi-device path: `k2k3-window`, K2 (both layouts) and K3 with a
    tile-row offset (tile_y0 0, 3, 17) against their plain versions at (tile 16, chunk 128)
    and (tile 32, chunk 256), and the render frame as 2 and as 4 windows of tile rows
@@ -197,6 +203,7 @@ LIVE_ITERS, LIVE_TIMELAPSE_EVERY = 48, 16
 BATCH, BATCHED_STEPS, TRAINER_BATCHED_ITERS = 4, 8, 32
 BATCHED_GUT_STEPS = 6
 BATCHED_CAPACITY = 1 << 20  # the batched phases' slots: the scene's 1M and dead ones
+QUALITY_ITERS = 600  # the quality-floor run (the JAX package's CI gate)
 
 
 def build_workload(n: int, width: int, height: int, seed: int = 0):
@@ -1452,12 +1459,13 @@ def write_capture(root: Path, params, focal, dev) -> dict:
 
 
 def trainer_run(params_kw: dict, data: Path, out: Path, dev, counted, plan=None,
-                preset: str | None = None, setup=None):
+                preset: str | None = None, setup=None, test_every: int = 6):
     """Train through the port's `Trainer` with every launch count set to 0 just before
     `train()` and read just after. `plan`: the initial RasterPlan, in place of the
     Trainer's own; `preset`: an optimization-parameters JSON that `params_kw` overrides;
     `setup(trainer)`: called before the counts are set to 0 (a resume, a checkpoint
-    schedule). -> (trainer, launches, wall seconds of train())"""
+    schedule); every `test_every`-th view is held out. -> (trainer, launches, wall seconds
+    of train())"""
     import torch
 
     from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
@@ -1467,7 +1475,7 @@ def trainer_run(params_kw: dict, data: Path, out: Path, dev, counted, plan=None,
     opt = (OptimizationParameters.from_file(Path(__file__).resolve().parent / preset)
            if preset else OptimizationParameters())
     tp = TrainingParameters(dataset=DatasetConfig(data_path=str(data), output_path=str(out),
-                                                  test_every=6),
+                                                  test_every=test_every),
                             optimization=dataclasses.replace(opt, **params_kw))
     t = Trainer(tp, device=dev)
     t.initial_plan = t.plan
@@ -2484,6 +2492,36 @@ def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dic
                 live_encode_ms=_quantiles([s["encode_ms"] for s in frame_ms]))
 
 
+def quality_floor_phase(dev, counted) -> dict:
+    """The JAX package's CI quality gate (`tests/test_io_and_trainer.py::
+    test_trainer_quality_floor_raytraced`) on the card through the port's `Trainer`: the
+    raytraced capture of `tpu_splat_torch/tools/synth_capture.py` (8 views at 48x48, seed
+    3, SfM noise 0.004, 2400 points; 7 train views, 1 val view), MCMC for 600 iterations
+    with max_cap 6000, refines every 100 from 100 to 500, SH degree up every 300, evals at
+    150 and 600, with every launch count set to 0 just before `train()` and read just
+    after. The gate is the JAX test's: the final PSNR above 11.5 dB and 3 dB above the
+    first; K1-K4 once a step, K1 and K2 once more an eval render."""
+    from tpu_splat_torch.tools.synth_capture import make_raytraced_colmap
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = Path(tmp) / "rt"
+        make_raytraced_colmap(cap, n_cams=8, size=48, seed=3, sfm_noise=0.004, n_sfm=2400)
+        t, launches, wall = trainer_run(
+            dict(iterations=QUALITY_ITERS, max_cap=6000, refine_every=100,
+                 start_refine=100, stop_refine=500, enable_eval=True,
+                 eval_steps=[150, QUALITY_ITERS], save_steps=[], num_workers=2,
+                 sh_degree_interval=300, min_opacity=0.005),
+            cap, Path(tmp) / "out", dev, counted, test_every=8)
+    require_launches(launches, t, "quality-floor")
+    res = trainer_summary(t, launches, wall)
+    require(len(res["evals"]) == 2 and res["evals"][0]["num_images"] == 1, res["evals"])
+    first, last = (e["psnr"] for e in res["evals"])
+    require(math.isfinite(first) and math.isfinite(last), (first, last))
+    require(last > 11.5, f"quality-floor: PSNR {last:.2f} dB at {QUALITY_ITERS} (floor 11.5)")
+    require(last > first + 3.0, f"quality-floor: no convergence, {first:.2f} -> {last:.2f} dB")
+    return dict(res, psnr=[first, last], ssim=[e["ssim"] for e in res["evals"]])
+
+
 def window_phases(state, focal, frame_image, dev) -> dict:
     """`k2k3-window`: K2 (f32 and bf16 layouts) and K3 with a tile-row offset tile_y0 in
     {0, 3, 17} against their plain versions on random segments at (tile 16, chunk 128) and
@@ -3462,6 +3500,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer = trainer_phases(params, focal, dev, counted)
     trainer.update(device=kind, nvidia_smi=smi)
+    # -- the JAX package's CI quality gate on the raytraced capture
+    quality = quality_floor_phase(dev, counted)
+    phase("quality-floor", card=smi, **{k: quality[k] for k in (
+        "iterations", "psnr", "ssim", "wall_s", "it_per_s", "launches", "steps_dispatched",
+        "eval_renders", "n_alive", "plan_history")})
+    trainer["quality_floor"] = quality
     # each kernel's launches in the product path's runs, beside its main path's
     wrapper_of = {"expand.cu": "expand_emission", "blend_fwd.cu": "blend_forward",
                   "blend_bwd.cu": "blend_backward", "segsum.cu": "segsum_emission",
@@ -3470,7 +3514,7 @@ def main() -> int:
     runs = dict(pinhole=trainer["pinhole"], gut=trainer["gut"], batched=trainer["batched"],
                 batched_step=batched_step, batched_gut_step=batched_gut, adc=trainer["adc"],
                 resumed=trainer["resume"], grid_pose=trainer["components"]["grid_pose"],
-                sparsity=trainer["components"]["sparsity"])
+                sparsity=trainer["components"]["sparsity"], quality_floor=quality)
     serving_runs = dict(view_sog_cli=view_sog["cli"], point_cloud=view_sog["frames"]["point_cloud"],
                         sh4_frame=view_sog["frames"]["sh_degree_4"], sh4_steps=view_sog["sh4_steps"],
                         viewer=viewer_res, trainer_live=trainer["live"])

@@ -414,6 +414,42 @@ def test_segprefix_kernel_on_short_and_ragged_axes_on_card(n_rows, m):
 
 
 @pytest.mark.cuda
+def test_quality_floor_capture_trains_on_card(tmp_path):
+    """The quality-floor configuration of `chip_smoke.py` (the JAX package's CI gate:
+    the raytraced capture of `tools/synth_capture.py` at 48x48, 8 views, test_every 8,
+    max_cap 6000, refines every 100) for 150 iterations through the Trainer on the card:
+    the eval PSNR is finite and rises from iteration 30 to 150; K1-K4 launch once a step,
+    K1 and K2 once more an eval render."""
+    _require_cuda()
+    from tpu_splat_torch.core.config import (DatasetConfig, OptimizationParameters,
+                                             TrainingParameters)
+    from tpu_splat_torch.ops.cuda import blend, raster
+    from tpu_splat_torch.tools.synth_capture import make_raytraced_colmap
+    from tpu_splat_torch.training.trainer import Trainer
+
+    make_raytraced_colmap(tmp_path / "rt", n_cams=8, size=48, seed=3, sfm_noise=0.004,
+                          n_sfm=2400)
+    tp = TrainingParameters(
+        dataset=DatasetConfig(data_path=str(tmp_path / "rt"),
+                              output_path=str(tmp_path / "out"), test_every=8),
+        optimization=OptimizationParameters(
+            iterations=150, max_cap=6000, refine_every=100, start_refine=100,
+            stop_refine=500, enable_eval=True, eval_steps=[30, 150], save_steps=[],
+            num_workers=2, sh_degree_interval=300, min_opacity=0.005))
+    trainer = Trainer(tp)
+    counted = (raster.expand_emission, blend.blend_forward, blend.blend_backward,
+               raster.segsum_emission)
+    for fn in counted:
+        fn.launches = 0
+    trainer.train(progress_every=1000)
+    torch.cuda.synchronize()
+    steps, evals = trainer.steps_dispatched, trainer.eval_renders
+    assert [fn.launches for fn in counted] == [steps + evals] * 2 + [steps] * 2
+    first, last = (r.psnr for r in trainer.evaluator.results)
+    assert np.isfinite([first, last]).all() and last > first, (first, last)
+
+
+@pytest.mark.cuda
 def test_trainer_runs_through_the_kernels_on_card(tmp_path):
     """A 10-step Trainer run (two dispatch chunks and an eval) on a 6-view 96x64 capture
     the port renders: K1-K4 launch once a step, K1 and K2 also once an eval render, no

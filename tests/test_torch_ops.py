@@ -172,8 +172,10 @@ def test_port_imports_no_jax():
         "from tpu_splat_torch.parallel import distributed, dryrun, mesh, raster_mc, step\n"
         "import chip_smoke, profile_render, ab_blend_kernels, ab_gut_kernels\n"
         "import ab_segred_kernels\n"
+        "from tpu_splat_torch.tools import eval_mipnerf360, eval_raytraced, synth_capture\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'tpu_splat', 'PIL'))\n"
+        "             if m.split('.')[0] in ('jax', 'tpu_splat', 'PIL', 'synth_data',\n"
+        "                                    'torch_fixtures', 'conftest'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -70,10 +70,11 @@ EXACT = dict(basis_red=False, approx_recip=False, lowp=False, grad_dtype=jnp.flo
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """PyTorch's CPU kernels on one thread in every test here: with several, the plain
-    blend's results were seen to change from run to run near the transmittance threshold
-    (an exp one ulp apart), by up to 3e-4 in a few pixels, which comparisons at 1e-5 or
-    bit for bit cannot absorb."""
+    """PyTorch's CPU kernels on one thread in every test here, as each gloo rank of
+    `dryrun._worker` runs. With several, the plain blend's stop decisions near the
+    transmittance threshold were seen to move from run to run, by up to 3e-4 in a few
+    pixels, which comparisons at 1e-5 or bit for bit cannot absorb; the cause is not
+    found (ROADMAP.md Queue 3)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -136,3 +137,11 @@ def create_new_project(
     proj.save()
     return proj
 
+
+def create_temp_project(data_path: str = "", output_path: str = "") -> Project:
+    """CreateTempNewProject: project in a temp dir, flagged temporary."""
+    d = Path(tempfile.mkdtemp(prefix="tpu_splat_proj_"))
+    proj = Project(path=d / f"temp{PROJECT_SUFFIX}", name="temp", data_path=str(data_path),
+                   output_path=str(output_path or d), is_temporary=True)
+    proj.save()
+    return proj

@@ -200,6 +200,27 @@ def composite_chunk(a, valid, t_run, dead):
     return w, torch.where(alive, t_cand, t_run), dead | (valid & below).any(dim=1)
 
 
+# The plain versions' sums over features and instances: fixed-order elementwise products
+# and reductions along one axis, never a BLAS contraction, whose blocking (and so its
+# summation order) may follow the thread count.
+def weighted_features(w, feat4):
+    """sum over the chunk's instances of w [T, C, P] x feat4 [T, C, 4] -> [T, P, 4]."""
+    return torch.stack([(w * feat4[:, :, k, None]).sum(1) for k in range(4)], dim=2)
+
+
+def feature_dot(feat4, g4):
+    """feat4 [T, C, 4] . g4 [T, P, 4] over the four features -> [T, C, P]."""
+    f, g = feat4[:, :, None, :], g4[:, None, :, :]
+    return (f[..., 0] * g[..., 0] + f[..., 1] * g[..., 1]) + (
+        f[..., 2] * g[..., 2] + f[..., 3] * g[..., 3])
+
+
+def weight_grads(w, g4):
+    """The four feature gradients of each instance, sum over pixels of w [T, C, P] x
+    g4 [T, P, 4] -> four [T, C]."""
+    return [(w * g4[:, None, :, k]).sum(2) for k in range(4)]
+
+
 @torch.no_grad()
 def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: int,
                         tile_size: int, max_chunks: int, chunk: int = 128, tile_y0: int = 0):
@@ -231,7 +252,7 @@ def blend_forward_plain(flat, seg_start, tile_count, *, n_tiles: int, grid_w: in
 
             w, t_run, dead = composite_chunk(a, valid, t_run, dead)
             feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
-            acc = acc + torch.einsum("tcp,tck->tpk", w, feat4)
+            acc = acc + weighted_features(w, feat4)
 
         zeros = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
         outs.append(torch.cat([acc[:, :, :3], t_run[:, :, None], acc[:, :, 3:], zeros], dim=2))
@@ -325,7 +346,7 @@ def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles
             t_excl = t_in * (cp_incl / one_m)
             w = torch.where(use, a * t_excl, 0.0)  # [T, C, P]
             feat4 = f[F_R:F_D + 1].permute(1, 2, 0)  # [T, C, 4]
-            cdotg = torch.einsum("tck,tpk->tcp", feat4, g4)
+            cdotg = feature_dot(feat4, g4)
             u = w * cdotg
             # strictly-later instances of this chunk, plus everything in later chunks
             later = torch.flip(torch.cumsum(torch.flip(u, (1,)), dim=1), (1,)) - u
@@ -340,7 +361,7 @@ def blend_backward_plain(flat, seg_start, tile_count, chk, out, gout, *, n_tiles
                 (dl_ds * (dx * dy)).sum(2),
                 (dl_ds * (0.5 * dy * dy)).sum(2),
                 torch.where(not_clamped, dl_da * gauss, 0.0).sum(2),
-                *torch.einsum("tcp,tpk->ktc", w, g4),
+                *weight_grads(w, g4),
             ])  # [10, T, C]
             gflat[:, idx[lane_valid]] = grads[:, lane_valid]
             carry = carry + u.sum(1)

@@ -44,7 +44,7 @@ import torch
 
 from ..projection import MAX_FRAGMENT_ALPHA, MIN_ALPHA, TRANSMITTANCE_THRESHOLD
 from .blend import (CHUNKS, SUB_H, SUB_W, TILE_SIZES, _check_backward_args, _tile_batches,
-                    _to_f32, composite_chunk)
+                    _to_f32, composite_chunk, feature_dot, weight_grads, weighted_features)
 from .build import check, count_launch, kernel, require_cuda
 
 (G_M00, G_M01, G_M02, G_M10, G_M11, G_M12, G_M20, G_M21, G_M22,
@@ -270,7 +270,7 @@ def gut_blend_forward_plain(flat, rays, seg_start, tile_count, *, n_tiles: int,
             f, _, _, a, valid, _ = ray_response(flat, d, do, start, count, j, chunk)
             w, t_run, dead = composite_chunk(a, valid, t_run, dead)
             feat4 = f[G_R:G_D + 1].permute(1, 2, 0)  # [T, C, 4]
-            acc = acc + torch.einsum("tcp,tck->tpk", w, feat4)
+            acc = acc + weighted_features(w, feat4)
 
         zeros = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
         outs.append(torch.cat([acc[:, :, :3], t_run[:, :, None], acc[:, :, 3:], zeros], dim=2))
@@ -352,7 +352,7 @@ def gut_blend_backward_plain(flat, rays, seg_start, tile_count, chk, out, gout, 
             t_excl = t_in * (cp_incl / one_m)
             w = torch.where(use, a * t_excl, 0.0)  # [T, C, P]
             feat4 = f[G_R:G_D + 1].permute(1, 2, 0)  # [T, C, 4]
-            cdotg = torch.einsum("tck,tpk->tcp", feat4, g4)
+            cdotg = feature_dot(feat4, g4)
             u = w * cdotg
             # strictly-later instances of this chunk, plus everything in later chunks
             later = torch.flip(torch.cumsum(torch.flip(u, (1,)), dim=1), (1,)) - u
@@ -376,7 +376,7 @@ def gut_blend_backward_plain(flat, rays, seg_start, tile_count, chk, out, gout, 
                 *(x.sum(2) for x in m_terms),
                 *(x.sum(2) for x in dg),
                 g_op,
-                *torch.einsum("tcp,tpk->ktc", w, g4),
+                *weight_grads(w, g4),
             ])  # [17, T, C]
             gflat[:, idx[lane_valid]] = grads[:, lane_valid]
             carry = carry + u.sum(1)

@@ -35,3 +35,10 @@ def quat_to_rotmat(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     cols = quat_to_rotmat_cols(q, eps)
     m = torch.stack([c for row in cols for c in row], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_scale_to_covar(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(quat [..., 4], scale sigma [..., 3]) -> 3D covariance R S^2 R^T [..., 3, 3]."""
+    r = quat_to_rotmat(q)
+    rs = r * (scales[..., None, :] ** 2)  # R @ diag(s^2)
+    return rs @ r.transpose(-1, -2)

@@ -102,12 +102,24 @@ class CheckpointSaved:
 
 
 @dataclass
+class PlySaved:
+    path: str
+    iteration: int
+
+
+@dataclass
 class EvaluationCompleted:
     iteration: int
     psnr: float
     ssim: float
     lpips: float | None
     num_images: int
+
+
+@dataclass
+class RefinementCompleted:
+    iteration: int
+    info: dict = field(default_factory=dict)
 
 
 # cmd::* (events.hpp:41-78) — honored by the trainer's control flags
@@ -187,6 +199,11 @@ class DatasetLoadCompleted:
 class EvaluationStarted:
     iteration: int
     num_images: int
+
+
+@dataclass
+class MemoryUsage:
+    bytes_in_use: int
 
 
 @dataclass
