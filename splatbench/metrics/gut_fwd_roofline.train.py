@@ -1,0 +1,15 @@
+"""K5 in GUT train steps (`csrc/gut_fwd.cu`): the least time the traced steps' ray blend
+forward needs (`sb_counts.gut_fwd`) over the device time of the kernels below, in
+percent."""
+
+import sb_counts
+from sb_trace import kernel_seconds
+
+KERNELS = ("gut_fwd_kernel",)
+
+
+def read(rec, cell):
+    work, trace = rec.get("work"), rec.get("trace")
+    if rec["kind"] != "train" or not work or not work.get("gut") or not trace:
+        return None
+    return sb_counts.roofline_pct(*sb_counts.gut_fwd(work), kernel_seconds(trace, KERNELS))
