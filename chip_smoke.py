@@ -1513,7 +1513,7 @@ def trainer_summary(t, launches: dict, wall: float) -> dict:
 
 def trainer_step_probe(t, reps: int = 6) -> dict:
     """Wall ms of one synchronised step dispatched as the Trainer dispatches it
-    (`_dispatch_step`: host-to-device copies of the sample, `train_step`) on the trained
+    (`_dispatch_step`: the sample staged and uploaded, `train_step`) on the trained
     state and plan: alone, and while an `InfiniteDataLoader` over the train split (8
     prefetch threads decoding PNGs) hands it one sample a step. Medians after 2 warm-ups.
     What is not in these, of the Trainer's time a step, is its host loop."""

@@ -27,7 +27,8 @@ near-zero gradient moves that one parameter by a whole lr);
 ADC's `dens_grad2d` through K3/K4 within 1e-3 of its largest value of the plain versions',
 `dens_count` exactly; the ADC refine on the card bit-equal to the CPU's outside the split
 children (rtol 1e-5 there); LPIPS on the card rtol 1e-3 of the CPU's; a checkpoint of a
-card state bit for bit, the CUDA generator's state included.
+card state bit for bit, the CUDA generator's state included; the Trainer's pinned input
+staging bit for bit against a host stack, its refill waiting for an upload still queued.
 """
 
 import dataclasses
@@ -46,6 +47,7 @@ from tpu_splat_torch.ops.cuda.raster import (LONG_RUN, emission_columns, expand_
                                              expand_emission_plain, segred_prefix,
                                              segred_prefix_plain, segsum_emission,
                                              segsum_emission_plain)
+from tpu_splat_torch.training.staging import InputStaging
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
@@ -773,3 +775,46 @@ def test_launch_counts_stay_exact_across_threads():
     finally:
         sys.setswitchinterval(interval)
     assert wrapper.launches == 16 * 5000
+
+
+@pytest.mark.cuda
+def test_input_staging_pinned_on_card():
+    """`InputStaging` on the card: pinned host buffers, one upload a chunk that does not
+    block the host. The device buffers hold the host stack's bits; with the stream kept
+    busy, the next refill waits for the last upload (`waits`), and work queued on the
+    staged views before it reads the chunk they held; the buffers are kept across chunks
+    of one shape, a shorter chunk in their prefix."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+
+    def chunk(k):
+        return ([rng.random((3, 64, 96), dtype=np.float32) for _ in range(k)],
+                [rng.normal(size=(4, 4)) for _ in range(k)],
+                [rng.normal(size=3) for _ in range(k)],
+                [rng.random(3, dtype=np.float32) for _ in range(k)])
+
+    def host_stack(c):
+        return [torch.from_numpy(np.ascontiguousarray(np.stack(x), np.float32)) for x in c]
+
+    st = InputStaging(dev, 4)
+    assert st.pinned
+    first, a, b, cut = chunk(4), chunk(4), chunk(4), chunk(2)
+    st.stage(*first)  # the buffers' allocation, which may synchronise the device
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # the next upload queues behind ~0.1 s of device work
+    got_a = st.stage(*a)
+    kept = [x.clone() for x in got_a]
+    got_b = st.stage(*b)
+    torch.cuda.synchronize()
+    assert st.waits == 1 and st.allocs == 1
+    for got, want in zip(kept, host_stack(a)):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    for got, want in zip(got_b, host_stack(b)):
+        assert torch.equal(got.cpu(), want)
+    assert got_b[0].data_ptr() == got_a[0].data_ptr()
+    got_cut = st.stage(*cut)
+    torch.cuda.synchronize()
+    assert got_cut[0].data_ptr() == got_a[0].data_ptr() and st.allocs == 1
+    for got, want in zip(got_cut, host_stack(cut)):
+        assert torch.equal(got.cpu(), want)

@@ -264,6 +264,8 @@ def test_overflow_rolls_back_state_and_generator(colmap_dir, tmp_path):
     assert t.n_redo >= 1 and t.plan_history[0][3] and t.plan.pack_bf16
     assert len(t._loss_hist) == 12 and np.isfinite(t._loss_hist).all()
     assert t.steps_dispatched > 12
+    # the redo ran through the scan path, its chunks in the reused staging buffers
+    assert t.opt.scan_steps == 4 and t.stage_allocs == 1
 
 
 @pytest.fixture(scope="module")

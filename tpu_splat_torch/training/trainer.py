@@ -11,7 +11,10 @@ dispatch, and a rollback restores it, so a redo draws what the first try drew.
 
 Uninterrupted stretches between host hooks go to `train_step_many` in chunks of
 `scan_steps`; heterogeneous chunks (mixed image sizes or GUT camera configs) fall back to
-one dispatch a step, as in the JAX package.
+one dispatch a step, as in the JAX package. Either way a dispatch's images, cameras and
+backgrounds reach the device through buffers kept from chunk to chunk (`staging.py`: on a
+card, a pinned host buffer and one copy that does not block the host);
+`timings["stage"]` is the host's part of that, within `timings["dispatch"]`.
 
 Schedule hooks (all host-dispatched between steps, against the reference's post_backward):
   * MCMC: refine (relocate+grow) on the strict (start, stop) window (mcmc.cpp:501-505).
@@ -84,6 +87,7 @@ from . import sparsity as sp
 from . import strategy_default, strategy_mcmc
 from .dataset import CameraDataset, InfiniteDataLoader, split_cameras
 from .metrics import MetricsEvaluator
+from .staging import InputStaging
 from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_sh_degree,
                          adc_refine_step, adc_reset_opacity_step, admm_init_step,
                          admm_update_step, init_train_state, refine_step,
@@ -92,8 +96,9 @@ from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_s
 log = get_logger(__name__)
 
 # the split of `Trainer.train`'s wall time (seconds), in `Trainer.timings`
-TIMING_KEYS = ("data_wait", "dispatch", "pending_checks", "hooks", "eval", "timelapse",
-               "save")
+# ("stage", the inputs' staging, is a part of "dispatch")
+TIMING_KEYS = ("data_wait", "dispatch", "stage", "pending_checks", "hooks", "eval",
+               "timelapse", "save")
 
 
 def _next_pow2(x: int) -> int:
@@ -285,6 +290,7 @@ class Trainer:
         self.viewer_renders = 0  # the live viewer's frames (viewer.py), from its threads
         self._live_rate: float | None = None  # it/s at the last progress report
         self.timings = dict.fromkeys(TIMING_KEYS, 0.0)
+        self._staging = InputStaging(dev, int(getattr(opt, "scan_steps", 1) or 1))
         self.sog_timings: dict[str, float] = {}  # save_sog's split, when --sog
         # control flags (reference: pause/save/stop atomics, trainer.cpp:427-472),
         # driven by cmd::* events so a front-end thread can steer training
@@ -414,21 +420,38 @@ class Trainer:
     def _device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=self.device)
 
+    @property
+    def stage_allocs(self) -> int:
+        """Staging buffers allocated: one per chunk shape."""
+        return self._staging.allocs
+
+    @property
+    def stage_waits(self) -> int:
+        """Refills of the pinned staging buffer that waited for its last upload."""
+        return self._staging.waits
+
+    def _stage(self, samples, iteration: int):
+        """The samples' images, world-to-camera matrices, camera positions and the
+        backgrounds of iterations `iteration`.. on the device (`InputStaging.stage`)."""
+        t0 = time.perf_counter()
+        cams = [s.camera for s in samples]
+        staged = self._staging.stage(
+            [s.image for s in samples], [c.world_view_transform for c in cams],
+            [c.cam_position for c in cams],
+            [self.background_for_step(iteration + j) for j in range(len(samples))])
+        self.timings["stage"] += time.perf_counter() - t0
+        return staged
+
     def _dispatch_step(self, sample, iteration: int) -> PendingStep:
         prev, rng_state = self.state, self.state.rng.get_state()
         cam = sample.camera
         cfg, dist = (
             self._gut_cfg_for(cam) if self.step_cfg.gut else (self.step_cfg, None)
         )
+        images, w2cs, positions, bgs = self._stage([sample], iteration)
         self.state, stats = train_step(
-            self.state,
-            self._device(sample.image),
-            self._device(cam.world_view_transform),
-            self._device(cam.cam_position),
-            sample.fx, sample.fy, sample.cx, sample.cy,
-            self._device(self.background_for_step(iteration)),
-            sample.index,
-            dist,
+            self.state, images[0], w2cs[0], positions[0],
+            sample.fx, sample.fy, sample.cx, sample.cy, bgs[0], sample.index, dist,
             width=cam.image_width, height=cam.image_height,
             plan=self.plan, opt=cfg,
             total_iterations=self.opt.iterations,
@@ -505,14 +528,11 @@ class Trainer:
             cfg, dists = self.step_cfg, None
         prev, rng_state = self.state, self.state.rng.get_state()
         k = len(samples)
+        images, w2cs, positions, bgs = self._stage(samples, iteration)
         self.state, stats = train_step_many(
-            self.state,
-            self._device(np.stack([s.image for s in samples])),
-            self._device(np.stack([c.world_view_transform for c in cams])),
-            self._device(np.stack([c.cam_position for c in cams])),
+            self.state, images, w2cs, positions,
             np.asarray([[s.fx, s.fy, s.cx, s.cy] for s in samples], np.float32),
-            self._device(np.stack([self.background_for_step(iteration + j)
-                                   for j in range(k)])),
+            bgs,
             np.asarray([s.index for s in samples], np.int32),
             dists,
             width=w, height=h, plan=self.plan, opt=cfg,
@@ -848,6 +868,7 @@ class Trainer:
             self._barrier()
         finally:
             loader.close()
+            self._staging.close()
             for unsubscribe in self._unsubscribe:
                 unsubscribe()
             writer().flush()  # all queued artifact writes are on disk before we return
