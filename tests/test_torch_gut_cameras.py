@@ -17,6 +17,13 @@ Tolerances, each with its reason:
     the covariance's terms cancel likewise); tile bounds, `n_tiles` and `visible`
     equal except for Gaussians whose rounded radius or tile edge sits on an integer
     within rounding: those are counted and bounded at 1% of the Gaussians.
+
+`test_ut_project_matches_jax` runs on Gaussians without rotation: the JAX package builds
+the sigma points' offsets as rows S R[:, i] (`tpu_splat/ops/gut.py:74`), whose covariance is
+diag(s^2) whatever the rotation, and the port builds s_i R[:, i] (ROADMAP.md, "JAX faults
+not copied"); the two rules agree where R is the identity. Its rotated, anisotropic twin,
+`test_ut_project_rotated_matches_reference`, holds the port to the plain reference
+`tests/gut_reference.py` at the same tolerances.
 """
 
 import jax
@@ -31,6 +38,8 @@ from tpu_splat_torch.convert import camera_params_from_numpy
 from tpu_splat_torch.ops import cameras as tc
 from tpu_splat_torch.ops.gut import ut_project
 
+import gut_reference as ref
+from test_torch_gut_reference import compare_projections, rotated_scene
 from utils import make_scene
 
 W, H, F = 64, 48, 55.0
@@ -213,6 +222,8 @@ def test_ut_project_matches_jax(case, tile_size):
     pj, pt = _params(model, coeffs, shutter)
     scene = make_scene(300, seed=11)
     scene["alive"][::9] = False
+    # no rotation, where the JAX package's sigma points and the port's agree
+    scene["rotation_raw"][:, 1:] = 0.0
     keys = ("means", "scaling_raw", "rotation_raw", "opacity_raw", "alive")
     w2c = np.eye(4, dtype=np.float32)
     w2c[:3, 3] = (0.1, -0.05, 0.2)
@@ -249,3 +260,36 @@ def test_ut_project_matches_jax(case, tile_size):
     assert (differ & both).sum() <= 3, int((differ & both).sum())
     assert proj_t.n_tiles.dtype == torch.int32 and proj_t.tile_min.dtype == torch.int32
     assert (proj_t.n_tiles.numpy()[~vis_t] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(UT_CASES))
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_ut_project_rotated_matches_reference(case, tile_size):
+    """`test_ut_project_matches_jax`'s cameras on rotated, anisotropic Gaussians, held to
+    the plain reference at the same tolerances."""
+    model, coeffs, shutter, intr = UT_CASES[case]
+    _, pt = _params(model, coeffs, shutter)
+    scene, alive = rotated_scene(300, seed=11)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, 3] = (0.1, -0.05, 0.2)
+    pose = None
+    if shutter != "global":
+        rng = np.random.default_rng(6)
+        q1, t1 = _pose(rng, 0.02)
+        pose = (np.asarray([1.0, 0, 0, 0], np.float32), w2c[:3, 3].copy(), q1,
+                w2c[:3, 3] + t1)
+    max_angle = tc.fisheye_max_angle(pt) if model == "fisheye" else None
+    keys = ("means", "scaling_raw", "rotation_raw", "opacity_raw")
+    got, comp = ut_project(*(torch.from_numpy(scene[k]) for k in keys),
+                           torch.from_numpy(alive), torch.from_numpy(w2c), *intr, pt, W, H,
+                           tile_size, max_angle,
+                           shutter_pose=None if pose is None else tuple(
+                               torch.from_numpy(x) for x in pose))
+    cam = ref.camera(w2c, *intr, W, H, model=model, coeffs=coeffs, shutter=shutter,
+                     pose=pose)
+    want = ref.ut_project({k: torch.from_numpy(scene[k]) for k in keys},
+                          torch.from_numpy(alive), cam, tile_size)
+    compare_projections(got, comp, want)
+    assert int(got.visible.sum()) < 300
+    assert bool(torch.isinf(got.power_threshold).all()) and bool((got.color == 0).all())
+    assert (got.n_tiles.numpy()[~got.visible.numpy()] == 0).all()

@@ -23,6 +23,14 @@ Tolerances, each with its reason:
     first steps move a parameter by lr * sign(g) wherever |g| is tiny); Adam's two moments
     on the same entries, rtol 2e-2 plus 1e-4 of the group's largest moment (the second
     moment doubles a gradient's relative error).
+
+The comparisons with JAX run on Gaussians without rotation (the train steps also with a
+rotation learning rate of 0, so that they stay so): the JAX package builds the sigma
+points' offsets as rows S R[:, i] (`tpu_splat/ops/gut.py:74`), whose covariance is
+diag(s^2) whatever the rotation, and the port builds s_i R[:, i] (ROADMAP.md, "JAX faults
+not copied"); the two rules agree where R is the identity. Each has a rotated, anisotropic
+twin held to the plain reference `tests/gut_reference.py` at the same tolerances, the
+reference's frame standing in for JAX's.
 """
 
 import dataclasses
@@ -36,12 +44,15 @@ import torch
 from tpu_splat.ops import cameras as jc
 from tpu_splat.ops.gut import rasterize_gut as jax_rasterize_gut
 from tpu_splat.training import train_step as jax_ts
+from tpu_splat_torch import convert
 from tpu_splat_torch.convert import camera_params_from_numpy
 from tpu_splat_torch.core.splat import PARAM_FIELDS
 from tpu_splat_torch.ops.gut import rasterize_gut
 from tpu_splat_torch.training import optim, train_step as ts_mod
 from tpu_splat_torch.training.losses import photometric_loss, regularization_losses
 
+import gut_reference as ref
+from test_torch_gut_reference import rotated_scene
 from test_torch_train_step import _jax_state, _to_port
 from utils import make_camera, make_scene
 
@@ -79,10 +90,18 @@ CASES = {
 }
 
 
+def _unrotated_scene(seed):
+    """`make_scene`'s Gaussians without rotation, where the JAX package's sigma points and
+    the port's agree."""
+    scene = make_scene(150, seed=seed)
+    scene["rotation_raw"][:, 1:] = 0.0
+    return scene
+
+
 def _run_both(case, backend, dist=None, seed=3):
     model, coeffs, shutter, mode, bg, intr = CASES[case]
     pj, pt = _both_params(model, ZERO if dist is not None else coeffs, shutter)
-    scene = make_scene(150, seed=seed)
+    scene = _unrotated_scene(seed)
     cam = make_camera(SIZE, SIZE)
     intr = intr or (cam["fx"], cam["fy"], cam["cx"], cam["cy"])
     pose = _shutter_pose(cam["w2c"]) if shutter != "global" else None
@@ -160,10 +179,91 @@ def test_rasterize_gut_with_dist_coefficients_matches_jax():
     assert float((other.image - out_static.image).abs().max()) > 1e-3  # distortion matters
 
 
+def _port_and_reference(case, seed, dist=None):
+    """`_run_both`'s render on rotated, anisotropic Gaussians, by the port and by the
+    plain reference: -> (port output, port gradients, reference image, alpha, depth or
+    None, projection, gradients)."""
+    model, coeffs, shutter, mode, bg, intr = CASES[case]
+    _, pt = _both_params(model, ZERO if dist is not None else coeffs, shutter)
+    scene, alive = rotated_scene(150, seed=seed)
+    cam = make_camera(SIZE, SIZE)
+    intr = intr or (cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+    pose = _shutter_pose(cam["w2c"]) if shutter != "global" else None
+    weight = torch.from_numpy(np.random.default_rng(0).random((3, SIZE, SIZE))
+                              .astype(np.float32))
+
+    def objective(image, depth):
+        loss = (image * weight).sum()
+        return loss if depth is None else loss + 0.1 * depth.sum()
+
+    leaves = [torch.from_numpy(scene[k]).requires_grad_(True) for k in KEYS]
+    out_t = rasterize_gut(*leaves, alive, cam["w2c"], cam["cam_position"], *intr, 3, bg,
+                          cam_params=pt, shutter_pose=pose, dist=dist, device="cpu",
+                          render_mode=mode, **KW)
+    grads_t = torch.autograd.grad(objective(out_t.image, out_t.depth), leaves)
+
+    rcam = ref.camera(cam["w2c"], *intr, SIZE, SIZE, model=model,
+                      coeffs=coeffs if dist is None else dist, shutter=shutter, pose=pose)
+    p = {k: torch.from_numpy(scene[k]).requires_grad_(True) for k in KEYS}
+    out_r = ref.render(p, torch.from_numpy(alive), rcam, 3, bg, KW["tile_size"])
+    depth = None
+    if mode != "RGB":
+        depth = out_r["depth"]
+        if mode == "RGB_ED":
+            depth = depth / out_r["alpha"].clamp_min(1e-10)
+    grads_r = torch.autograd.grad(objective(out_r["image"], depth), list(p.values()))
+    return out_t, grads_t, out_r, depth, grads_r
+
+
+def _compare_with_reference(out_t, grads_t, out_r, depth_r, grads_r):
+    """`_compare`'s tolerances, the reference in JAX's place; the instance counters from
+    the reference's rects (the GUT path emits every tile of a rect)."""
+    np.testing.assert_allclose(out_t.image.detach().numpy(), out_r["image"].detach().numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out_t.alpha.detach().numpy(), out_r["alpha"].detach().numpy(),
+                               rtol=0, atol=1e-4)
+    assert 0.05 < float(out_t.alpha.detach().mean()) < 0.95
+    assert (out_t.depth is None) == (depth_r is None)
+    if depth_r is not None:
+        depth = depth_r.detach().numpy()
+        np.testing.assert_allclose(out_t.depth.detach().numpy(), depth, rtol=0,
+                                   atol=1e-4 * depth.max())
+    ut = out_r["ut"]
+    vis = ut["visible"]
+    grid = -(-SIZE // KW["tile_size"])
+    ty, tx = torch.meshgrid(torch.arange(grid), torch.arange(grid), indexing="ij")
+    r = ut["rect"][vis]
+    per_tile = ((tx.reshape(-1, 1) >= r[:, 0]) & (tx.reshape(-1, 1) < r[:, 2])
+                & (ty.reshape(-1, 1) >= r[:, 1]) & (ty.reshape(-1, 1) < r[:, 3])).sum(1)
+    assert int(out_t.aux.total_instances) == int(ut["tiles"].sum()) == int(per_tile.sum())
+    assert int(out_t.aux.max_tile_count) == int(per_tile.max())
+    assert int(out_t.aux.n_visible) == int(vis.sum())
+    assert 0 < int(out_t.aux.max_tile_count) <= KW["k_max"]
+    np.testing.assert_array_equal(out_t.aux.visible.numpy(), vis.numpy())
+    for k, gt, gr in zip(KEYS, grads_t, grads_r):
+        scale = float(gr.abs().max())
+        assert scale > 0 and bool(torch.isfinite(gr).all()), k
+        assert float((gt - gr).abs().max()) / scale <= 2e-4, k
+
+
+@pytest.mark.parametrize("case,seed", [("pinhole", 3), ("fisheye", 3), ("ortho", 3),
+                                       ("rolling", 3), ("pinhole", 4), ("ortho", 4)])
+def test_rasterize_gut_rotated_matches_reference(case, seed):
+    """The twin of `test_rasterize_gut_matches_jax_xla_lane` (seed 3) and
+    `..._pallas_lane` (seed 4) on rotated, anisotropic Gaussians."""
+    _compare_with_reference(*_port_and_reference(case, seed))
+
+
+def test_rasterize_gut_with_dist_coefficients_rotated_matches_reference():
+    """The twin of `test_rasterize_gut_with_dist_coefficients_matches_jax`: per-view
+    coefficients as a tensor, on rotated, anisotropic Gaussians."""
+    _compare_with_reference(*_port_and_reference("pinhole", 5, dist=PINHOLE))
+
+
 def _port_render(case, seed, dist=None, **kw):
     model, coeffs, shutter, mode, bg, intr = CASES[case]
     _, pt = _both_params(model, coeffs, shutter)
-    scene = make_scene(150, seed=seed)
+    scene = _unrotated_scene(seed)
     cam = make_camera(SIZE, SIZE)
     intr = intr or (cam["fx"], cam["fy"], cam["cx"], cam["cy"])
     with torch.no_grad():
@@ -230,11 +330,16 @@ def test_gut_train_steps_match_jax():
     gt = np.random.default_rng(2).random((3, SIZE, SIZE)).astype(np.float32)
     plan_j = jax_ts.RasterPlan(max_instances=1 << 14, k_max=256, chunk=16)
     plan_t = ts_mod.RasterPlan(max_instances=1 << 14, k_max=256, chunk=16)
-    cfg_j = jax_ts.StepConfig(strategy="mcmc", gut=True, cam_params=pj)
-    cfg_t = ts_mod.StepConfig(strategy="mcmc", gut=True, cam_params=pt)
+    # no rotation, kept so by a rotation learning rate of 0 (the module's docstring)
+    cfg_j = jax_ts.StepConfig(strategy="mcmc", gut=True, cam_params=pj, rotation_lr=0.0)
+    cfg_t = ts_mod.StepConfig(strategy="mcmc", gut=True, cam_params=pt, rotation_lr=0.0)
     kw = dict(width=SIZE, height=SIZE, total_iterations=100)
 
-    ts_j = jax_ts.init_train_state(_jax_state(), seed=9)
+    state = _jax_state()
+    unrotated = np.zeros(state.rotation_raw.shape, np.float32)
+    unrotated[:, 0] = np.asarray(state.rotation_raw)[:, 0]
+    ts_j = jax_ts.init_train_state(dataclasses.replace(state, rotation_raw=jnp.asarray(unrotated)),
+                                   seed=9)
     ts_t = _to_port(ts_j)
     lrs = optim.group_lrs(cfg_t, ts_t.splat.scene_scale)
     compared = {k: torch.ones_like(v, dtype=torch.bool) for k, v in ts_t.splat.params().items()}
@@ -271,6 +376,60 @@ def test_gut_train_steps_match_jax():
                                            atol=1e-4 * float(np.abs(want_m[mask]).max()),
                                            err_msg=f"{moment} {k}")
             assert ts_t.adam.step_count[k] == int(ts_j.adam.step_count[k]) == step + 1
+
+
+def test_gut_train_steps_rotated_match_reference():
+    """The twin of `test_gut_train_steps_match_jax` on rotated, anisotropic Gaussians with
+    the rotations trained, held to the plain reference's three steps at the same
+    tolerances. No MCMC noise (a zero draw): the reference takes Adam's steps alone."""
+    coeffs = [0.02] + [0.0] * 11
+    _, pt = _both_params("pinhole", np.asarray(coeffs, np.float32))
+    cams = [make_camera(SIZE, SIZE, fov_deg=55.0 + 5.0 * i) for i in range(3)]
+    gt = np.random.default_rng(2).random((3, SIZE, SIZE)).astype(np.float32)
+    plan = ts_mod.RasterPlan(max_instances=1 << 14, k_max=256, chunk=16)
+    cfg = ts_mod.StepConfig(strategy="mcmc", gut=True, cam_params=pt)
+    scene, alive = rotated_scene(256, seed=9)
+    zeros = {k: np.zeros_like(v) for k, v in scene.items()}
+    ts_t = convert.train_state_from_numpy(scene, alive, zeros, zeros, dict.fromkeys(scene, 0),
+                                          1, max_sh_degree=3, scene_scale=1.5, device="cpu")
+    lrs = optim.group_lrs(cfg, 1.5)
+    p = {k: torch.from_numpy(v) for k, v in scene.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    v2, counts = dict(m), dict.fromkeys(p, 0)
+    compared = {k: torch.ones_like(x, dtype=torch.bool) for k, x in p.items()}
+    for step, cam in enumerate(cams):
+        rcam = ref.camera(cam["w2c"], cam["fx"], cam["fy"], cam["cx"], cam["cy"], SIZE, SIZE,
+                          coeffs=coeffs)
+        want = ref.train_step(p, torch.from_numpy(alive), m, v2, counts, [rcam],
+                              [torch.from_numpy(gt)], step + 1, 100, lrs,
+                              ts_mod.active_sh_degree(step + 1, cfg.sh_degree_interval, 3),
+                              np.zeros(3, np.float32))
+        for k, g in want["grads"].items():
+            compared[k] &= g.abs() > 1e-6 * g.abs().max()
+        cam_args = (cam["w2c"], cam["cam_position"], cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+        ts_t, st_t = ts_mod.train_step(ts_t, gt, *cam_args, np.zeros(3, np.float32), step,
+                                       width=SIZE, height=SIZE, plan=plan, opt=cfg,
+                                       total_iterations=100, noise=torch.zeros(256, 3),
+                                       segred_impl=("segsum", "prefix")[step % 2])
+        p, m, v2, counts = want["params"], want["exp_avg"], want["exp_avg_sq"], want["counts"]
+        np.testing.assert_allclose(float(st_t.loss), float(want["loss"]), rtol=1e-4)
+        assert ts_t.iteration == step + 2
+        for k in PARAM_FIELDS:
+            got, exp = getattr(ts_t.splat, k).numpy(), p[k].numpy()
+            mask = compared[k].numpy()
+            if k == "shN":
+                np.testing.assert_array_equal(got, exp)
+                continue
+            assert mask.mean() > 0.05, k
+            np.testing.assert_allclose(got[mask], exp[mask], rtol=0,
+                                       atol=4e-3 * lrs[k] * (step + 1) + 1e-7, err_msg=k)
+            for moment, want_m in (("exp_avg", m[k]), ("exp_avg_sq", v2[k])):
+                want_m = want_m.numpy()
+                np.testing.assert_allclose(getattr(ts_t.adam, moment)[k].numpy()[mask],
+                                           want_m[mask], rtol=2e-2,
+                                           atol=1e-4 * float(np.abs(want_m[mask]).max()),
+                                           err_msg=f"{moment} {k}")
+            assert ts_t.adam.step_count[k] == counts[k] == step + 1
 
 
 def test_gut_train_step_many_takes_per_view_coefficients():

@@ -18,6 +18,11 @@ Reference: the `--gut` pipeline (3DGUT, arXiv 2412.12507) —
     -> per-Gaussian G_* table (autograd) + per-pixel world rays (no gradient)
     -> GutBlendTiles (K5; backward K6 -> K4 or K7; cuda/gut_kernels.py) -> compose_output
 
+Host spans: `ut_project` and `pixel_world_rays` add the host seconds spent inside them to
+this thread's `host_seconds()` ("gut_project", "gut_rays"; the Trainer sums them into its
+`timings`) and open profiler ranges of the same names, so a device trace names the idle
+gaps inside them. `pixel_world_rays.builds` counts the ray tables built.
+
 The UT projection and the pixel rays carry no gradient (as in the reference: the
 projection is a plain kernel there); gradients reach the 3D parameters through the
 world-space ray response and the SH colours. There is one pipeline on every device: on a
@@ -27,7 +32,10 @@ CUDA device the wrappers launch the kernels, on the CPU they run the plain versi
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
+import time
 
 import torch
 
@@ -49,7 +57,40 @@ UT_KAPPA = 0.0
 EPS2D = 0.3
 MAX_EXTENT = 3.33  # ProjectionUT3DGSFused.cu:160
 
+HOST_SPANS = ("gut_project", "gut_rays")
+_spans = threading.local()
+_builds_lock = threading.Lock()
 
+
+def host_seconds() -> dict[str, float]:
+    """The calling thread's host seconds inside `ut_project` ("gut_project") and
+    `pixel_world_rays` ("gut_rays") so far; a caller reads the difference across its
+    own stretch."""
+    if not hasattr(_spans, "seconds"):
+        _spans.seconds = dict.fromkeys(HOST_SPANS, 0.0)
+    return _spans.seconds
+
+
+def _host_span(name: str):
+    """Time each call of the decorated function into `host_seconds()[name]`, inside a
+    profiler range of that name. The range has an operator's scope: a
+    `torch.profiler.record_function` range is a user annotation, which the profiler also
+    lays over the device timeline from the range's first kernel to its last, so a reader
+    that unites the device's events would count the idle time inside it as busy."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                with torch._C._profiler._RecordFunctionFast(name):
+                    return fn(*args, **kwargs)
+            finally:
+                host_seconds()[name] += time.perf_counter() - t0
+        return spanned
+    return wrap
+
+
+@_host_span("gut_project")
 @torch.no_grad()
 def ut_project(
     means, scaling_raw, rotation_raw, opacity_raw, alive,
@@ -69,8 +110,9 @@ def ut_project(
 
     rot = quat_to_rotmat(rotation_raw)  # [N,3,3]
     scale = torch.exp(scaling_raw)  # [N,3]
-    # sigma points [N, 7, 3]: mu, mu +- sqrt(d+lam) * s_i * R[:, i]
-    deltas = sqrt_dl * scale[:, None, :] * rot.transpose(-1, -2)  # rows = s_i R[:, i]
+    # sigma points [N, 7, 3]: mu, mu +- sqrt(d+lam) * s_i * R[:, i]; row i of R^T is
+    # R[:, i], scaled by s_i, so the points' covariance is R diag(s^2) R^T
+    deltas = sqrt_dl * scale[:, :, None] * rot.transpose(-1, -2)  # rows = s_i R[:, i]
     pts = torch.cat([means[:, None], means[:, None] + deltas, means[:, None] - deltas],
                     dim=1)  # [N,7,3]
 
@@ -183,6 +225,7 @@ def gut_feature_table(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN,
                         proj.depth])
 
 
+@_host_span("gut_rays")
 @torch.no_grad()
 def pixel_world_rays(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
                      shutter_pose, *, grid_w: int, grid_h: int, tile_size: int, width: int,
@@ -191,6 +234,8 @@ def pixel_world_rays(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
     (dx, dy, dz, 0), or [T, P, 8] with the per-pixel origin offsets (dox, doy, doz, 0) of
     a rolling shutter or an orthographic camera (Cameras.cuh:346-414). The tiles are
     grid_h rows from the image's tile row `tile_y0` (a window of the multi-device render)."""
+    with _builds_lock:
+        pixel_world_rays.builds += 1
     pix = _tile_pixel_points(grid_w, grid_h, tile_size, w2c.device, tile_y0)  # [T,P,2]
     delta_o = None
     if cam_params.shutter != "global" and shutter_pose is not None:
@@ -209,6 +254,9 @@ def pixel_world_rays(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
     pad1 = torch.zeros_like(rays_d[:, :, :1])
     cols = [rays_d, pad1] if delta_o is None else [rays_d, pad1, delta_o, pad1]
     return torch.cat(cols, dim=-1).contiguous()
+
+
+pixel_world_rays.builds = 0
 
 
 def rasterize_gut(

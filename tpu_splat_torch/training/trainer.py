@@ -74,7 +74,7 @@ from ..io.image import save_image
 from ..io.loader import LoadResult, load
 from ..io.ply import load_splat_ply, save_splat_ply
 from ..ops.cameras import CameraParams
-from ..ops.gut import rasterize_gut
+from ..ops.gut import HOST_SPANS, host_seconds, rasterize_gut
 from ..ops.rasterize import rasterize
 from ..parallel.mesh import (gather_train_state, make_mesh, shard_train_state,
                              trainer_mesh_shape)
@@ -96,9 +96,10 @@ from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_s
 log = get_logger(__name__)
 
 # the split of `Trainer.train`'s wall time (seconds), in `Trainer.timings`
-# ("stage", the inputs' staging, is a part of "dispatch")
-TIMING_KEYS = ("data_wait", "dispatch", "stage", "pending_checks", "hooks", "eval",
-               "timelapse", "save")
+# ("stage", the inputs' staging, and the GUT path's host spans "gut_project" and
+# "gut_rays", `ops/gut.py::host_seconds`, are parts of "dispatch")
+TIMING_KEYS = ("data_wait", "dispatch", "stage", *HOST_SPANS, "pending_checks", "hooks",
+               "eval", "timelapse", "save")
 
 
 def _next_pow2(x: int) -> int:
@@ -729,21 +730,28 @@ class Trainer:
         """Dispatch the step or chunk that starts at `it`; -> its last iteration."""
         if self.mesh is not None:
             samples = [self._next_sample(loader) for _ in range(self.batch_size)]
-            t0 = time.perf_counter()
+            t0, spans = time.perf_counter(), dict(host_seconds())
             pending.append(self._dispatch_batched(samples, it))
-            self.timings["dispatch"] += time.perf_counter() - t0
+            self._add_dispatch_time(t0, spans)
             return it
         k = self._scan_chunk(it, total, progress_every)
         samples = [self._next_sample(loader) for _ in range(k)]
-        t0 = time.perf_counter()
+        t0, spans = time.perf_counter(), dict(host_seconds())
         ps = self._dispatch_scan(samples, it) if k > 1 else None
         if ps is not None:
             pending.append(ps)
         else:  # one step, or heterogeneous samples: per-step dispatch
             for j, s in enumerate(samples):
                 pending.append(self._dispatch_step(s, it + j))
-        self.timings["dispatch"] += time.perf_counter() - t0
+        self._add_dispatch_time(t0, spans)
         return it + k - 1
+
+    def _add_dispatch_time(self, t0: float, spans: dict[str, float]) -> None:
+        """Add the dispatch's host seconds since `t0`, and the GUT spans' growth since
+        `spans` (`host_seconds()` at `t0`), to `timings`."""
+        self.timings["dispatch"] += time.perf_counter() - t0
+        for k, v in host_seconds().items():
+            self.timings[k] += v - spans[k]
 
     def train(self, progress_every: int = 100) -> None:
         opt = self.opt
