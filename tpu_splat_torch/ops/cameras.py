@@ -69,6 +69,7 @@ class BoundCameraParams:
     radial: torch.Tensor  # [6]
     tangential: torch.Tensor  # [2]
     thin_prism: torch.Tensor  # [4]
+    coeffs: torch.Tensor  # [12], of which the three above are views
 
 
 def bind_coeffs(params: CameraParams, dist=None):
@@ -78,7 +79,7 @@ def bind_coeffs(params: CameraParams, dist=None):
     dist = torch.as_tensor(dist, dtype=torch.float32)
     return BoundCameraParams(
         model=params.model, shutter=params.shutter,
-        radial=dist[0:6], tangential=dist[6:8], thin_prism=dist[8:12],
+        radial=dist[0:6], tangential=dist[6:8], thin_prism=dist[8:12], coeffs=dist,
     )
 
 

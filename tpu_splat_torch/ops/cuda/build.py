@@ -32,7 +32,27 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry point of each source: (name, argtypes); every one returns a cudaError_t
+_F = ctypes.c_float
+
+
+class Camera(ctypes.Structure):
+    """`struct Camera` of csrc/gut_project.cu, passed by value: the camera's scalars."""
+
+    _fields_ = [("model", _I), ("width", _I), ("height", _I), ("tile_size", _I),
+                ("fx", _F), ("fy", _F), ("cx", _F), ("cy", _F), ("rfx", _F), ("rfy", _F),
+                ("lo_x", _F), ("hi_x", _F), ("lo_y", _F), ("hi_y", _F), ("max_angle", _F),
+                ("coef", _F * 12), ("dk", _F * 3)]
+
+
+class UtConsts(ctypes.Structure):
+    """`struct UtConsts` of csrc/gut_project.cu, passed by value: the UT's constants."""
+
+    _fields_ = [("sqrt_dl", _F), ("wm0", _F), ("wc0", _F), ("wi", _F), ("eps2d", _F),
+                ("min_alpha", _F), ("max_extent", _F), ("near", _F)]
+
+
+# C entry point of each library: (symbol, argtypes), built from `csrc/<name>.cu` unless
+# `_SOURCE` names another source; every one returns a cudaError_t
 ENTRY_POINTS = {
     "expand": ("tpu_splat_expand", (_P, _P, _P, _I, _I, _P, _P, _P)),
     "blend_fwd": ("tpu_splat_blend_fwd",
@@ -45,7 +65,13 @@ ENTRY_POINTS = {
     "gut_bwd": ("tpu_splat_gut_bwd",
                 (_P, _L, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P)),
     "segprefix": ("tpu_splat_segprefix", (_P, _I, _L, _P, _I, _I, _P, _P, _P, _P, _I, _P)),
+    "gut_project": ("tpu_splat_ut_project",
+                    (_P, _P, _P, _P, _P, _I, _P, _P, _P, Camera, UtConsts,
+                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)),
+    "gut_rays": ("tpu_splat_gut_rays", (_P, _P, _P, Camera, _I, _I, _I, _P, _P)),
 }
+# the source of an entry point whose library is not `<name>.cu`
+_SOURCE = {"gut_rays": "gut_project"}
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 # one build and load at a time: the live viewer renders from HTTP threads while the
@@ -65,7 +91,13 @@ def nvcc_path() -> str:
     return found
 
 
+def source_name(name: str) -> str:
+    """The source (`csrc/<source>.cu`) that entry point `name` is built from."""
+    return _SOURCE.get(name, name)
+
+
 def library_path(name: str) -> Path:
+    name = source_name(name)
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -87,7 +119,8 @@ def _start_build(name: str) -> subprocess.Popen | None:
     log = open(lib.with_suffix(".log"), "w")
     try:
         return subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(SRC_DIR / f"{source_name(name)}.cu")],
             stdout=log, stderr=subprocess.STDOUT,
         )
     finally:
@@ -101,16 +134,16 @@ def _finish_build(name: str, proc: subprocess.Popen | None) -> None:
     tmp = _tmp_path(lib)
     if proc.wait() != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu:\n{lib.with_suffix('.log').read_text()}")
+            f"nvcc failed for {source_name(name)}.cu:\n{lib.with_suffix('.log').read_text()}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees the whole file or none
 
 
 def build_all() -> dict[str, Path]:
-    """Build every kernel library, one nvcc per source in parallel. -> {name: .so}"""
-    procs = {name: _start_build(name) for name in ENTRY_POINTS}
+    """Build every kernel library, one nvcc per source in parallel. -> {source: .so}"""
+    procs = {src: _start_build(src) for src in dict.fromkeys(map(source_name, ENTRY_POINTS))}
     for name, proc in procs.items():
         _finish_build(name, proc)
-    return {name: library_path(name) for name in ENTRY_POINTS}
+    return {name: library_path(name) for name in procs}
 
 
 def build_log(name: str) -> str:

@@ -27,7 +27,10 @@ The UT projection and the pixel rays carry no gradient (as in the reference: the
 projection is a plain kernel there); gradients reach the 3D parameters through the
 world-space ray response and the SH colours. There is one pipeline on every device: on a
 CUDA device the wrappers launch the kernels, on the CPU they run the plain versions;
-`impl="plain"` runs the plain versions on any device.
+`impl="plain"` runs the plain versions on any device. `ut_project` and `pixel_world_rays`
+launch one kernel each under the global shutter (`ops/cuda/gut_project.py`); their plain
+versions are the chains of elementwise ops below, which a rolling shutter's per-pixel pose
+refinement always takes.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import math
 import threading
 import time
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -44,7 +48,9 @@ from .cameras import (CameraParams, bind_coeffs, fisheye_max_angle, ortho_ray_or
                       pixel_rays, pixel_world_rays_shutter, project_points,
                       project_points_shutter)
 from .cuda.blend import tile_pixel_centers
+from .cuda.build import UtConsts
 from .cuda.gut_kernels import GutBlendTiles
+from .cuda.gut_project import pixel_world_rays_kernel, ut_project_kernel
 from .cuda.raster import SEGRED_IMPLS, build_sorted_instances
 from .projection import MIN_ALPHA, Projected
 from .quat import quat_to_rotmat, quat_to_rotmat_cols
@@ -56,6 +62,8 @@ UT_BETA = 2.0
 UT_KAPPA = 0.0
 EPS2D = 0.3
 MAX_EXTENT = 3.33  # ProjectionUT3DGSFused.cu:160
+NEAR = 0.01  # the cull of the UT mean's camera z
+IMPLS = ("kernel", "plain")
 
 HOST_SPANS = ("gut_project", "gut_rays")
 _spans = threading.local()
@@ -90,6 +98,33 @@ def _host_span(name: str):
     return wrap
 
 
+def _ut_weights():
+    """(d, lambda, the mean point's mean and covariance weights, every other point's)."""
+    d = 3
+    lam = UT_ALPHA * UT_ALPHA * (d + UT_KAPPA) - d
+    wm0 = lam / (d + lam)
+    wc0 = wm0 + (1.0 - UT_ALPHA * UT_ALPHA + UT_BETA)
+    wi = 1.0 / (2.0 * (d + lam))
+    return d, lam, wm0, wc0, wi
+
+
+@functools.cache
+def _ut_consts() -> UtConsts:
+    """The kernel's constants, each the float32 value the plain version computes with."""
+    d, lam, wm0, wc0, wi = _ut_weights()
+    return UtConsts(sqrt_dl=float(np.sqrt(np.float32(d + lam))), wm0=wm0, wc0=wc0, wi=wi,
+                    eps2d=EPS2D, min_alpha=MIN_ALPHA, max_extent=MAX_EXTENT, near=NEAR)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _rolling(cam_params, shutter_pose) -> bool:
+    return cam_params.shutter != "global" and shutter_pose is not None
+
+
 @_host_span("gut_project")
 @torch.no_grad()
 def ut_project(
@@ -97,15 +132,28 @@ def ut_project(
     w2c, fx, fy, cx, cy, cam_params,
     width: int, height: int, tile_size: int, max_angle,
     shutter_pose=None,  # (q_start, t_start, q_end, t_end) when shutter != global
+    impl: str = "kernel",  # "plain": the chain below on any device
 ):
-    """UT projection of all Gaussians -> (Projected, compensation [N])."""
+    """UT projection of all Gaussians -> (Projected, compensation [N]). One kernel launch
+    on a CUDA device under the global shutter; the plain version on the CPU, under
+    `impl="plain"` or a rolling shutter."""
+    _check_impl(impl)
+    if impl == "kernel" and means.is_cuda and not _rolling(cam_params, shutter_pose):
+        return ut_project_kernel(means, scaling_raw, rotation_raw, opacity_raw, alive, w2c,
+                                 fx, fy, cx, cy, cam_params, width, height, tile_size,
+                                 max_angle, _ut_consts())
+    return ut_project_plain(means, scaling_raw, rotation_raw, opacity_raw, alive, w2c,
+                            fx, fy, cx, cy, cam_params, width, height, tile_size,
+                            max_angle, shutter_pose)
+
+
+def ut_project_plain(means, scaling_raw, rotation_raw, opacity_raw, alive, w2c, fx, fy,
+                     cx, cy, cam_params, width: int, height: int, tile_size: int, max_angle,
+                     shutter_pose=None):
+    """Plain version of the UT projection: a chain of elementwise ops."""
     f32 = means.dtype
     dev = means.device
-    d = 3
-    lam = UT_ALPHA * UT_ALPHA * (d + UT_KAPPA) - d
-    wm0 = lam / (d + lam)
-    wc0 = wm0 + (1.0 - UT_ALPHA * UT_ALPHA + UT_BETA)
-    wi = 1.0 / (2.0 * (d + lam))
+    d, lam, wm0, wc0, wi = _ut_weights()
     sqrt_dl = torch.sqrt(torch.tensor(d + lam, dtype=f32, device=dev))
 
     rot = quat_to_rotmat(rotation_raw)  # [N,3,3]
@@ -138,7 +186,7 @@ def ut_project(
     valid = alive & pt_valid.any(dim=1)
 
     depth = cam_pts[:, 0, 2]  # camera z of the mean
-    valid = valid & (depth > 0.01)
+    valid = valid & (depth > NEAR)
 
     # ---- projection tail
     det_before = cov2d[:, 0, 0] * cov2d[:, 1, 1] - cov2d[:, 0, 1] * cov2d[:, 1, 0]
@@ -229,16 +277,33 @@ def gut_feature_table(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN,
 @torch.no_grad()
 def pixel_world_rays(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
                      shutter_pose, *, grid_w: int, grid_h: int, tile_size: int, width: int,
-                     height: int, tile_y0: int = 0):
+                     height: int, tile_y0: int = 0, impl: str = "kernel"):
     """Per-pixel world rays of every tile through the camera model: [T, P, 4]
     (dx, dy, dz, 0), or [T, P, 8] with the per-pixel origin offsets (dox, doy, doz, 0) of
     a rolling shutter or an orthographic camera (Cameras.cuh:346-414). The tiles are
-    grid_h rows from the image's tile row `tile_y0` (a window of the multi-device render)."""
+    grid_h rows from the image's tile row `tile_y0` (a window of the multi-device render).
+    One kernel launch on a CUDA device under the global shutter; the plain version on the
+    CPU, under `impl="plain"` or a rolling shutter."""
+    _check_impl(impl)
     with _builds_lock:
         pixel_world_rays.builds += 1
+    if impl == "kernel" and w2c.is_cuda and not _rolling(cam_params, shutter_pose):
+        return pixel_world_rays_kernel(w2c, fx, fy, cx, cy, cam_params, max_angle,
+                                       grid_w=grid_w, grid_h=grid_h, tile_size=tile_size,
+                                       width=width, height=height, tile_y0=tile_y0)
+    return pixel_world_rays_plain(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
+                                  shutter_pose, grid_w=grid_w, grid_h=grid_h,
+                                  tile_size=tile_size, width=width, height=height,
+                                  tile_y0=tile_y0)
+
+
+def pixel_world_rays_plain(w2c, cam_position, fx, fy, cx, cy, cam_params, max_angle,
+                           shutter_pose, *, grid_w: int, grid_h: int, tile_size: int,
+                           width: int, height: int, tile_y0: int = 0):
+    """Plain version of the per-pixel world rays: a chain of elementwise ops."""
     pix = _tile_pixel_points(grid_w, grid_h, tile_size, w2c.device, tile_y0)  # [T,P,2]
     delta_o = None
-    if cam_params.shutter != "global" and shutter_pose is not None:
+    if _rolling(cam_params, shutter_pose):
         q_s, t_s, q_e, t_e = shutter_pose
         ray_o_pp, rays_d = pixel_world_rays_shutter(
             pix, q_s, t_s, q_e, t_e, fx, fy, cx, cy, cam_params, width, height,
@@ -289,8 +354,7 @@ def rasterize_gut(
     multi-camera rigs render each view with its own coefficients."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    _check_impl(impl)
     if segred_impl not in SEGRED_IMPLS:
         raise ValueError(f"segred_impl must be one of {SEGRED_IMPLS}, got {segred_impl!r}")
     dev = resolve_device(device)
@@ -311,7 +375,7 @@ def rasterize_gut(
     proj, compensation = ut_project(
         means.detach(), scaling_raw.detach(), rotation_raw.detach(), opacity_raw.detach(),
         alive, w2c.detach(), fx, fy, cx, cy, cam_params, width, height, tile_size,
-        max_angle, shutter_pose=shutter_pose,
+        max_angle, shutter_pose=shutter_pose, impl=impl,
     )
     with torch.no_grad():
         inst = build_sorted_instances(proj, grid_w, grid_h, max_instances, tile_size,
@@ -319,7 +383,7 @@ def rasterize_gut(
     rays = pixel_world_rays(
         w2c.detach(), cam_position.detach(), fx, fy, cx, cy, cam_params, max_angle,
         shutter_pose, grid_w=grid_w, grid_h=grid_h, tile_size=tile_size, width=width,
-        height=height)
+        height=height, impl=impl)
     gtab = gut_feature_table(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN,
                              cam_position, active_sh_degree, proj, compensation)
     dims = dict(n_tiles=grid_w * grid_h, tile_size=tile_size, k_max=k_max, chunk=chunk)

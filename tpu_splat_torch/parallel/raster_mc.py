@@ -211,7 +211,7 @@ def render_batch_mc(
             proj, comp = ut_project(
                 prm["means"].detach(), prm["scaling_raw"].detach(),
                 prm["rotation_raw"].detach(), prm["opacity_raw"].detach(), alive,
-                w2c.detach(), fx, fy, cx, cy, cp, width, height, ts, ma)
+                w2c.detach(), fx, fy, cx, cy, cp, width, height, ts, ma, impl=impl)
             feats = gut_feature_table(prm["means"], prm["scaling_raw"], prm["rotation_raw"],
                                       prm["opacity_raw"], prm["sh0"], prm["shN"], cpos,
                                       sh_deg, proj, comp)[:N_GUT].T
@@ -240,7 +240,7 @@ def render_batch_mc(
         if gut:
             rays = pixel_world_rays(w2c.detach(), cpos.detach(), fx, fy, cx, cy, cp, ma,
                                     None, grid_w=gw, grid_h=gh_loc, tile_size=ts,
-                                    width=width, height=height, tile_y0=y0)
+                                    width=width, height=height, tile_y0=y0, impl=impl)
             gtab = torch.cat([featf.T, wproj.depth[None]])
             dims = dict(n_tiles=gw * gh_loc, tile_size=ts, k_max=plan.k_max,
                         chunk=GUT_CHUNK)
