@@ -66,11 +66,17 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    inputs; 20 GUT
    `train_step`s (`StepConfig(gut=True)`), the last six through the K7 lane, with every
    launch count set to 0 just before and read just after: K1, K5, K6 once a step and K4 or
-   K7 once a step, and no call of `emission_order`; the six parameter gradients of
+   K7 once a step, the UT projection and world-ray kernels once a step, and no call of
+   `emission_order`; the six parameter gradients of
    `rasterize_gut` under both reduction lanes; K5 (with its stop decisions and pair
    counts), K6 (and its repeatability), K7 and 17-row K4 (through `emis_col`, as at the
    pinhole step) against their plain versions on the step's own inputs, their times, the
-   GUT frame's time and the GUT step's stage split;
+   GUT frame's time and the GUT step's stage split; the UT projection and world-ray
+   kernels (`csrc/gut_project.cu`) against their plain chains on the scene in 2^20 slots
+   at 1296x840 (`gut_projection_phase`: an OPENCV camera with every coefficient
+   non-zero, bound to a device tensor and static, tiles 16 and 32, a window of tile rows,
+   a fisheye with its max angle as a float and on the card, an ortho camera), and their
+   times at the GUT cell's camera and tile;
 10. drives the product path (`trainer_phases`): writes a COLMAP capture with the port's own
    code (12 PNG views of the scene at 1296x840 from perturbed poses, 150k of its means as
    SfM points, binary model files; and the same capture declared OPENCV with k1 = 0.05),
@@ -79,7 +85,7 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    overflow->redo protocol runs) and through `Trainer` with `--gut` on the OPENCV
    declaration (32 iterations), with every launch count set to 0 just before each
    `train()` and read just after: K1-K4 once a step (K1, K2 also once an eval render), K1,
-   K5, K6 and K4 once a GUT step; a replan and a redo, falling losses, a rising eval PSNR,
+   K5, K6, K4 and the two GUT projection kernels once a GUT step; a replan and a redo, falling losses, a rising eval PSNR,
    `splat_final.ply` with n == n_alive, `metrics.csv`; then `python -m tpu_splat_torch -d
    CAPTURE -o OUT --headless -i 16` in a subprocess; then, on the same capture:
    `trainer-adc`, `Trainer` on the shipped ADC preset (`parameter/default_optimization_
@@ -117,13 +123,14 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    step's ms and cameras/s; `batched-gut-step` (after the GUT phases), the same step
    through the GUT blend (radial k1 = 0.05 handed over per camera, K5/K6 on the windows'
    world rays): its gradients against the plain versions' (1e-3) and the single-camera
-   GUT steps' mean (1e-5), K1/K4/K5/K6 4 times a step; `mesh-2rank`, `parallel/dryrun.py` at the scene's size over
+   GUT steps' mean (1e-5), K1/K4/K5/K6 and the GUT projection kernels 4 times a step; `mesh-2rank`, `parallel/dryrun.py` at the scene's size over
    two gloo processes sharing the card as meshes (1, 2) and (2, 1) against a world of one
    (losses, the refine, the gathered parameters); `trainer-batched` (inside the trainer
    phases), the CLI with `--batch-size 4` on the capture: it/s, images/s, PSNR, launches
    (4 a step, one more an eval render);
-11. prints a `kernels` JSON line (all seven kernels; K2 in both layouts, K4 at both row
-   counts; K5 and K6 with their pair counts and ptxas' registers and spills; each kernel's
+11. prints a `kernels` JSON line (all seven kernels and the two GUT projection kernels; K2
+   in both layouts, K4 at both row counts; K5 and K6 with their pair counts and ptxas'
+   registers and spills; each kernel's
    launches in the trainer phases' runs and in the serving phases'), a `frame`
    JSON line (frame ms and per-stage split), a `train` JSON line (step
    ms, split, plan, counters, losses), a `gut` JSON line (the same for the GUT frame and
@@ -179,6 +186,24 @@ K5_OPS_PER_PAIR = 49
 # divide), dL/dpow and d/dop 4, dL/dc 3, the two cross products 18, n.dn 5, dL/dv 9, the
 # nine outer products with their pixel sums 18, gro sums 3, colour and depth sums 8
 K6_OPS_PER_USED_PAIR = 83
+# The GUT projection kernels (csrc/gut_project.cu) through the pinhole model, FP32
+# operations counted from the source (a fused multiply-add counts 2). ut_project, a slot:
+# the rotation 40, the sigma points 33, seven points of w2c 21 and distorted projection 53
+# each, the UT mean 28 and covariance 84, the projection tail 60; it reads 45 bytes a slot
+# (means, scaling, rotation, opacity, alive) and writes 69 (Projected, the compensation).
+# The world rays, a pixel: 20 undistortion steps of 41 (the distortion 36), the pixel
+# centre 8, the norm 9, w2c 18; it writes 16 bytes a pixel.
+GUT_PROJECT_OPS_PER_SLOT = 40 + 33 + 7 * (21 + 53) + 28 + 84 + 60
+GUT_PROJECT_BYTES_PER_SLOT = 45 + 69
+GUT_RAYS_OPS_PER_PIXEL = 20 * 41 + 8 + 9 + 18
+GUT_RAYS_BYTES_PER_PIXEL = 16
+# the cuBLAS kernel of the plain chain's UT-mean einsum at 2^16 slots and more, whose
+# summation order the UT projection kernel repeats (csrc/gut_project.cu)
+UT_MEAN_BLAS = "gemv2N"
+# the wrappers a pinhole step or render never launches: K5, K6, K7 (the Trainer reduces
+# through K4), the UT projection and the world rays
+NO_PINHOLE_LAUNCH = ("gut_blend_forward", "gut_blend_backward", "segred_prefix",
+                     "ut_project_kernel", "pixel_world_rays_kernel")
 TRAIN_STEPS = 30
 TILE_T, CHUNK_T = 32, 256  # the trainer's plan (bench.py:91)
 TILE_F, CHUNK_F, K_MAX_F = 16, 128, 4096  # render_view's plan
@@ -239,6 +264,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median CUDA-event time of fn() in ms with the stream held by a ~1 ms spin before the
+    start event, so that the host has queued fn's launches when the card reaches them: the
+    card's time, without the host's cost of launching (which `cuda_ms` takes in for a
+    launch shorter than that cost)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -759,6 +806,219 @@ def check_gut_stops(chk, chk_plain, args, kw, label: str) -> dict:
     return want
 
 
+
+def gut_test_cameras() -> dict:
+    """The GUT projection kernels' camera models: an OpenCV pinhole with every radial,
+    tangential and thin-prism coefficient non-zero, a fisheye, an ortho camera."""
+    from tpu_splat_torch.ops.cameras import CameraParams
+
+    return {
+        "pinhole": CameraParams(radial=(0.05, -0.01, 0.002, 0.01, -0.002, 0.0005),
+                                tangential=(0.001, -0.0015),
+                                thin_prism=(0.0008, -0.0003, 0.0005, 0.0002)),
+        "fisheye": CameraParams(model="fisheye",
+                                radial=(0.05, -0.01, 0.002, -0.0005, 0.0, 0.0)),
+        "ortho": CameraParams(model="ortho"),
+    }
+
+
+def near_tile_edge(proj, i: int, tile: int) -> bool:
+    """Whether a rect edge of the projection's slot i lies within 1e-4 of a tile boundary,
+    or its radius within 1e-4 of its rounding (float64 from its outputs)."""
+    a, b, c = (float(v) for v in proj.conic[i].double())
+    det = 1.0 / (a * c - b * b)
+    op = float(proj.opacity[i])
+    ext = min(np.sqrt(max(2.0 * np.log(op * 255.0), 0.0)), 3.33)
+    for m, cov in ((float(proj.mean2d[i, 0]), c * det), (float(proj.mean2d[i, 1]), a * det)):
+        e = ext * np.sqrt(max(cov, 0.0))
+        r = np.ceil(e)
+        if abs(e - np.round(e)) <= 1e-4:
+            return True
+        for edge in ((m - r) / tile, (m + r) / tile):
+            if abs(edge - np.round(edge)) <= 1e-4:
+                return True
+    return False
+
+
+def cuda_kernel_names(fn):
+    """fn() under torch.profiler -> (its result, the names of the kernels it ran on the
+    card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sorted({e.name for e in prof.events() if e.device_type.name == "CUDA"})
+
+
+def check_gut_projection(slots, cam, tile: int, label: str) -> dict:
+    """`ut_project` through its kernel against its plain chain on the same slots
+    (means, scaling_raw, rotation_raw, opacity_raw, alive) and camera (w2c, fx, fy, cx,
+    cy, cam_params, width, height, max_angle): the float fields rtol 1e-5, atol 1e-5 on
+    the slots both call visible; `visible`, the tile rects and `n_tiles` equal but for at
+    most 3 slots, each with a plain rect edge within 1e-4 of a tile boundary; `color` and
+    `power_threshold` equal; dead slots invisible with no tiles. The float32 kernel and
+    chain agree that closely only where they sum the UT mean in one order, so on the card
+    the chain's must have run cuBLAS's UT_MEAN_BLAS, the order the kernel repeats; and,
+    whatever the library picks, the kernel is held against the chain run in float64: no
+    further from it than twice the float32 chain is (the UT's weights, -99 and 16.7,
+    magnify a rounding), plus 1e-6 of the field's largest value. -> the largest gaps"""
+    import torch
+
+    from tpu_splat_torch.ops import gut
+    from tpu_splat_torch.ops.cuda.gut_project import ut_project_kernel
+
+    w2c, fx, fy, cx, cy, params, width, height, max_angle = cam
+    args = (fx, fy, cx, cy, params, width, height, tile, max_angle)
+    card = slots[0].is_cuda
+    launches = ut_project_kernel.launches
+    got, got_comp = gut.ut_project(*slots, w2c, *args, impl="kernel")
+    require(ut_project_kernel.launches == launches + card,
+            f"{label}: ut_project must launch its kernel once on the card")
+
+    def chain():
+        return gut.ut_project(*slots, w2c, *args, impl="plain")
+
+    blas = []
+    if card:
+        (want, want_comp), names = cuda_kernel_names(chain)
+        blas = [k[:64] for k in names if "gemv" in k or "gemm" in k]
+        require(any(UT_MEAN_BLAS in k for k in blas),
+                (f"{label}: the plain chain's UT mean ran another cuBLAS kernel than "
+                 f"{UT_MEAN_BLAS}, whose summation order the kernel repeats", blas))
+    else:
+        want, want_comp = chain()
+    ref, ref_comp = gut.ut_project(*(x.double() for x in slots[:4]), slots[4], w2c.double(),
+                                   *args, impl="plain")
+    alive = slots[4]
+    require(not bool(got.visible[~alive].any()) and not bool(got.n_tiles[~alive].any()),
+            f"{label}: a dead slot is visible or has tiles")
+    vis = want.visible & got.visible
+    both = vis & ref.visible
+    gaps = dict(visible=int(vis.sum()))
+    require(gaps["visible"] > 1000, f"{label}: {gaps['visible']} visible slots")
+    for name in ("mean2d", "conic", "opacity", "depth", "compensation"):
+        g, w, r = (c if name == "compensation" else getattr(p, name)
+                   for p, c in ((got, got_comp), (want, want_comp), (ref, ref_comp)))
+        torch.testing.assert_close(g[vis], w[vis], rtol=1e-5, atol=1e-5,
+                                   msg=lambda m, name=name: f"{label}: {name}: {m}")
+        d = (g[vis] - w[vis]).abs()
+        e_kernel = float((g[both].double() - r[both]).abs().max())
+        e_chain = float((w[both].double() - r[both]).abs().max())
+        require(e_kernel <= 2.0 * e_chain + 1e-6 * float(r[both].abs().max()),
+                (f"{label}: {name} further from the float64 chain than the float32 chain",
+                 e_kernel, e_chain))
+        gaps[name] = dict(max_abs=float(d.max()),
+                          max_rel=float((d / w[vis].abs().clamp_min(1e-30)).max()),
+                          not_bit_equal=int((g[vis] != w[vis]).sum()),
+                          f64_kernel=e_kernel, f64_chain=e_chain)
+    require(torch.equal(got.color, want.color)
+            and torch.equal(got.power_threshold, want.power_threshold),
+            f"{label}: color or power_threshold")
+    off = ((got.visible != want.visible) | (got.n_tiles != want.n_tiles)
+           | (got.tile_min != want.tile_min).any(1) | (got.tile_max != want.tile_max).any(1))
+    off_idx = torch.nonzero(off).flatten().tolist()
+    require(len(off_idx) <= 3 and all(near_tile_edge(want, i, tile) for i in off_idx),
+            (f"{label}: visible, tile rects or n_tiles differ", off_idx))
+    gaps.update(int_fields_off=len(off_idx), blas=blas)
+    return gaps
+
+
+def check_gut_rays(ray_args, kw: dict, label: str) -> dict:
+    """`pixel_world_rays` through its kernel against its plain chain: the shape, rtol
+    1e-5 (atol 1e-6), one launch on the card. -> the largest gap and the count of values
+    not bit-equal"""
+    import torch
+
+    from tpu_splat_torch.ops import gut
+    from tpu_splat_torch.ops.cuda.gut_project import pixel_world_rays_kernel
+
+    card = ray_args[0].is_cuda
+    launches = pixel_world_rays_kernel.launches
+    got = gut.pixel_world_rays(*ray_args, **kw, impl="kernel")
+    require(pixel_world_rays_kernel.launches == launches + card,
+            f"{label}: pixel_world_rays must launch its kernel once on the card")
+    want = gut.pixel_world_rays(*ray_args, **kw, impl="plain")
+    wide = 8 if ray_args[6].model == "ortho" else 4
+    require(got.shape == want.shape == (kw["grid_w"] * kw["grid_h"],
+                                        kw["tile_size"] ** 2, wide),
+            (label, tuple(got.shape), tuple(want.shape)))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                               msg=lambda m: f"{label}: rays: {m}")
+    return dict(max_abs=float((got - want).abs().max()),
+                not_bit_equal=int((got != want).sum()))
+
+
+def gut_projection_phase(sp, focal: float, dev) -> dict:
+    """`gut-projection-kernels`: the UT projection and world-ray kernels against their
+    plain chains (`check_gut_projection`, `check_gut_rays`) at the main path's shapes: the
+    state's slots (the dead ones among them), WIDTH x HEIGHT, from a camera turned 0.1 rad
+    and set 3 units into the scene, so that a tenth of it lies behind. Cameras: the OPENCV
+    pinhole of `gut_test_cameras` with its coefficients bound to a [12] device tensor (the
+    Trainer's path) at tiles 16 and 32 and over a window of 4 tile rows from row 3, and
+    static; the fisheye with its max angle as a float and as a 0-dim device tensor; the
+    ortho camera. Times both kernels (`queued_ms`: the card's time; `cuda_ms`: with the
+    launch's host cost) and both chains (`cuda_ms`) at the GUT cell's camera and tile (the
+    bound pinhole, tile 16). -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops import gut
+    from tpu_splat_torch.ops.cameras import bind_coeffs, fisheye_max_angle
+
+    c, s_ = math.cos(0.1), math.sin(0.1)
+    w2c = torch.tensor([[c, 0, s_, 0.1], [0, 1, 0, -0.05], [-s_, 0, c, -3.0], [0, 0, 0, 1]],
+                       dtype=torch.float32, device=dev)
+    slots = (sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.alive)
+    cams = gut_test_cameras()
+    fish_angle = fisheye_max_angle(cams["fisheye"])
+    bound = bind_coeffs(cams["pinhole"],
+                        torch.as_tensor(cams["pinhole"].coeff_vector(), device=dev))
+    cases = (("pinhole-bound", bound, None, 16), ("pinhole-bound", bound, None, 32),
+             ("pinhole", cams["pinhole"], None, 16),
+             ("fisheye", cams["fisheye"], fish_angle, 32),
+             ("fisheye-angle-on-card", cams["fisheye"],
+              torch.tensor(fish_angle, dtype=torch.float32, device=dev), 16),
+             ("ortho", cams["ortho"], None, 16))
+    out = dict(slots=int(sp.means.shape[0]), width=WIDTH, height=HEIGHT, cases={})
+    for name, params, max_angle, tile in cases:
+        f = WIDTH / 16.0 if params.model == "ortho" else focal
+        cam = (w2c, f, f, WIDTH / 2.0, HEIGHT / 2.0, params, WIDTH, HEIGHT, max_angle)
+        label = f"GUT projection {name} tile {tile}"
+        case = dict(projection=check_gut_projection(slots, cam, tile, label))
+        gw, gh = -(-WIDTH // tile), -(-HEIGHT // tile)
+        ray_args = (w2c, torch.zeros(3, device=dev), f, f, WIDTH / 2.0, HEIGHT / 2.0, params,
+                    max_angle, None)
+        ray_kw = dict(grid_w=gw, grid_h=gh, tile_size=tile, width=WIDTH, height=HEIGHT)
+        windows = ((0, gh), (3, 4)) if (name, tile) == ("pinhole-bound", 16) else ((0, gh),)
+        for y0, rows in windows:
+            case[f"rays@{y0}"] = check_gut_rays(ray_args, dict(ray_kw, grid_h=rows,
+                                                                tile_y0=y0),
+                                                f"{label} rays from tile row {y0}")
+        out["cases"][f"{name}-{tile}"] = case
+        if (name, tile) != ("pinhole-bound", 16):
+            continue
+        proj_args = (*slots, w2c, f, f, WIDTH / 2.0, HEIGHT / 2.0, params, WIDTH, HEIGHT,
+                     tile, max_angle)
+        out["timed"] = f"{name}-{tile}"
+        def project():
+            return gut.ut_project(*proj_args, impl="kernel")
+
+        def rays():
+            return gut.pixel_world_rays(*ray_args, **ray_kw, impl="kernel")
+
+        out["ut_project_ms"] = queued_ms(project, 20)
+        out["ut_project_ms_with_launch"] = cuda_ms(project, 20)
+        out["ut_project_plain_ms"] = cuda_ms(
+            lambda: gut.ut_project(*proj_args, impl="plain"), 3, warmup=1)
+        out["rays_ms"] = queued_ms(rays, 20)
+        out["rays_ms_with_launch"] = cuda_ms(rays, 20)
+        out["rays_plain_ms"] = cuda_ms(
+            lambda: gut.pixel_world_rays(*ray_args, **ray_kw, impl="plain"), 3, warmup=1)
+        out["pixels"] = gw * gh * tile * tile
+    torch.cuda.synchronize()
+    return out
+
 def train_setup(params, focal, dev, cam_params=None, sh_degree=3):
     """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
     image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
@@ -1157,6 +1417,9 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
             and launches["segsum_emission"] == GUT_STEPS - GUT_PREFIX_STEPS,
             f"K4 or K7 must launch once a step: {launches}")
     require(launches["blend_forward"] == 0 and launches["blend_backward"] == 0, launches)
+    require(all(launches[k] == GUT_STEPS for k in ("ut_project_kernel",
+                                                   "pixel_world_rays_kernel")),
+            f"the UT projection and world-ray kernels must launch once a step: {launches}")
     require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
             ("overflow", max(totals), max(ktiles), plan))
     require(all(math.isfinite(v) for v in losses), "non-finite loss")
@@ -1168,6 +1431,13 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
           total_instances=max(totals), max_tile_count=max(ktiles),
           n_visible=int(stats[-1].n_visible), loss_first5=first5, loss_last5=last5)
     del stats
+
+    # -- the UT projection and world-ray kernels against their plain chains on the scene in
+    # 2^20 slots (the cell's capacity), through every camera model; their times at the
+    # cell's camera
+    proj_k = gut_projection_phase(padded_splat(params, 1 << 20, dev), focal, dev)
+    phase("gut-projection-kernels", **proj_k)
+    torch.cuda.empty_cache()
 
     # -- gradients of rasterize_gut: kernels against plain versions under both reduction
     # lanes, and the lanes against each other, at the train shapes on the trained state
@@ -1261,6 +1531,30 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         kernels.append(kernel_entry(name, source, replaces,
                                     f"{shapes}: K6's tile-sorted rows through emis_col",
                                     launches[fn_name], k))
+    # the UT projection and the world rays: their largest gaps to the plain chains over
+    # every case, their times and bounds at the GUT cell's camera and tile
+    n_slots_p, n_pix = proj_k["slots"], proj_k["pixels"]
+    for name, replaces, fn_name, part, n_bytes, n_ops, unit in (
+        ("gut_project", "gut.py:56", "ut_project_kernel", "ut_project",
+         GUT_PROJECT_BYTES_PER_SLOT * n_slots_p, GUT_PROJECT_OPS_PER_SLOT * n_slots_p,
+         f"{n_slots_p} slots"),
+        ("gut_rays", "gut.py:332", "pixel_world_rays_kernel", "rays",
+         GUT_RAYS_BYTES_PER_PIXEL * n_pix, GUT_RAYS_OPS_PER_PIXEL * n_pix,
+         f"{n_pix} pixels"),
+    ):
+        errs = [v["max_abs"] if part == "rays" else max(f["max_abs"] for f in v.values()
+                                                         if isinstance(f, dict))
+                for case in proj_k["cases"].values() for key, v in case.items()
+                if key.startswith("rays" if part == "rays" else "projection")]
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        kernels.append(dict(
+            name=name, route="cuda", source="tpu_splat_torch/csrc/gut_project.cu",
+            shapes=f"GUT train step: {unit}, {WIDTH}x{HEIGHT}, OPENCV bound to a device "
+                   "tensor, tile 16", replaces=f"tpu_splat/ops/{replaces}",
+            launches=launches[fn_name], max_abs_err=max(errs), ms=proj_k[f"{part}_ms"],
+            plain_ms=proj_k[f"{part}_plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, bytes=n_bytes, ops=n_ops,
+            ms_with_launch=proj_k[f"{part}_ms_with_launch"]))
     # the bounds of a kernel without a cull, which evaluates every walked pair
     walked_bound_ms = dict(gut_fwd=bound_ms(k5_bytes, K5_OPS_PER_PAIR * pairs["walked"])[0],
                            gut_bwd=bound_ms(k6_bytes, K5_OPS_PER_PAIR * pairs["walked"]
@@ -1347,7 +1641,8 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
         max_tile_count=max(ktiles), frame=dict(frame_aux, **frame_err),
         fisheye_frame=dict(fish_aux, **fish_err), rolling_frame=dict(roll_aux, **roll_err),
         loss_first=losses[0], loss_last=losses[-1], loss_first5=first5, loss_last5=last5,
-        gradient_rel_err=grad_err, step_pairs=pairs, frame_kernels=frame_k, ptxas=regs)
+        gradient_rel_err=grad_err, step_pairs=pairs, frame_kernels=frame_k, ptxas=regs,
+        projection_kernels=proj_k)
 
 
 def rotation_to_qvec(r: np.ndarray) -> np.ndarray:
@@ -1583,8 +1878,7 @@ def trainer_phases(params, focal, dev, counted) -> dict:
         steps, evals = t.steps_dispatched, t.eval_renders
         require(all(launches[k] == steps + evals for k in ("expand_emission", "blend_forward"))
                 and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
-                and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
-                                                    "segred_prefix")),
+                and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
                 f"K1-K4 must launch once a step (K1, K2 also once an eval render): "
                 f"{launches}, {steps} steps, {evals} eval renders")
         require(len(t._loss_hist) == TRAINER_ITERS and steps >= TRAINER_ITERS, pin)
@@ -1614,10 +1908,13 @@ def trainer_phases(params, focal, dev, counted) -> dict:
         gut = trainer_summary(t, launches, wall)
         steps = t.steps_dispatched
         require(all(launches[k] == steps for k in ("expand_emission", "gut_blend_forward",
-                                                    "gut_blend_backward", "segsum_emission"))
+                                                    "gut_blend_backward", "segsum_emission",
+                                                    "ut_project_kernel",
+                                                    "pixel_world_rays_kernel"))
                 and all(launches[k] == 0 for k in ("blend_forward", "blend_backward",
                                                     "segred_prefix")),
-                f"K1, K5, K6 and K4 must launch once a GUT step: {launches}, {steps} steps")
+                f"K1, K5, K6, K4, the UT projection and the world rays must launch once a "
+                f"GUT step: {launches}, {steps} steps")
         require(len(t._loss_hist) == TRAINER_GUT_ITERS
                 and all(math.isfinite(v) for v in t._loss_hist), "GUT trainer losses")
         require(gut["loss_last8"] < gut["loss_first8"], ("the GUT loss did not fall", gut))
@@ -1670,8 +1967,7 @@ def require_launches(launches: dict, t, label: str) -> None:
     steps, evals = t.steps_dispatched, t.eval_renders
     require(all(launches[k] == steps + evals for k in ("expand_emission", "blend_forward"))
             and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
-            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
-                                                "segred_prefix")),
+            and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             f"{label}: K1-K4 must launch once a step (K1, K2 also once an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
 
@@ -2449,8 +2745,7 @@ def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dic
     renders = evals + t.timelapse_renders + t.viewer_renders
     require(all(launches[k] == steps + renders for k in ("expand_emission", "blend_forward"))
             and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
-            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
-                                                "segred_prefix")),
+            and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             ("trainer-live launches", launches, steps, evals, t.timelapse_renders,
              t.viewer_renders))
     require(len(t._loss_hist) == LIVE_ITERS and all(math.isfinite(v) for v in t._loss_hist),
@@ -2743,7 +3038,8 @@ def batched_gut_step_phase(params, focal, dev, counted, plan) -> dict:
     versions (within 1e-3 of each group's largest, as `gut-gradient-parity`) and against
     the mean of the BATCH single-camera GUT `train_step`s' (the same kernels on the same
     rays: within 1e-5), counts the kernels over BATCHED_GUT_STEPS steps with the counts set
-    to 0 just before (K1, K5, K6 and K4 BATCH times a step; K2, K3 and K7 none) and times
+    to 0 just before (K1, K5, K6, K4, the UT projection and the world rays BATCH times a
+    step; K2, K3 and K7 none) and times
     the step. -> the phase's numbers"""
     import torch
 
@@ -2815,10 +3111,11 @@ def batched_gut_step_phase(params, focal, dev, counted, plan) -> dict:
         losses.append(float(st.loss))
     launches = {fn.__name__: fn.launches for fn in counted}
     per_step = ("expand_emission", "segsum_emission", "gut_blend_forward",
-                "gut_blend_backward")
+                "gut_blend_backward", "ut_project_kernel", "pixel_world_rays_kernel")
     require(all(n == (BATCH * BATCHED_GUT_STEPS if k in per_step else 0)
                 for k, n in launches.items()),
-            f"K1, K4, K5 and K6 must launch {BATCH} times a step, the others never: {launches}")
+            f"K1, K4, K5, K6, the UT projection and the world rays must launch {BATCH} "
+            f"times a step, the others never: {launches}")
     require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
             ("batched GUT losses", losses))
     step_ms = statistics.median(wall[2:])
@@ -2922,8 +3219,7 @@ def trainer_batched_phase(root: Path, dev, counted) -> dict:
                                                                "blend_forward"))
             and all(launches[k] == BATCH * steps for k in ("blend_backward",
                                                            "segsum_emission"))
-            and all(launches[k] == 0 for k in ("gut_blend_forward", "gut_blend_backward",
-                                                "segred_prefix")),
+            and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             f"K1-K4 must launch {BATCH} times a step (K1, K2 once more an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
     require(len(t._loss_hist) == last and all(math.isfinite(v) for v in t._loss_hist),
@@ -3027,6 +3323,8 @@ def main() -> int:
                                                       gut_blend_backward_plain,
                                                       gut_blend_forward,
                                                       gut_blend_forward_plain)
+    from tpu_splat_torch.ops.cuda.gut_project import (pixel_world_rays_kernel,
+                                                      ut_project_kernel)
     from tpu_splat_torch.ops.cuda import raster
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
                                                  expand_emission, expand_emission_plain,
@@ -3048,7 +3346,8 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
     counted = (expand_emission, blend_forward, blend_backward, segsum_emission,
-               gut_blend_forward, gut_blend_backward, segred_prefix)
+               gut_blend_forward, gut_blend_backward, segred_prefix, ut_project_kernel,
+               pixel_world_rays_kernel)
     render_kernels = ("expand_emission", "blend_forward")  # the render path's two
 
     # -- build every kernel of the path from the checkout's sources
@@ -3518,8 +3817,10 @@ def main() -> int:
     serving_runs = dict(view_sog_cli=view_sog["cli"], point_cloud=view_sog["frames"]["point_cloud"],
                         sh4_frame=view_sog["frames"]["sh_degree_4"], sh4_steps=view_sog["sh4_steps"],
                         viewer=viewer_res, trainer_live=trainer["live"])
+    # gut_project.cu holds two kernels: those go by their entries' names
+    wrapper_of.update(gut_project="ut_project_kernel", gut_rays="pixel_world_rays_kernel")
     for entry in kernels:
-        fn = wrapper_of[entry["source"].rsplit("/", 1)[1]]
+        fn = wrapper_of.get(entry["name"]) or wrapper_of[entry["source"].rsplit("/", 1)[1]]
         entry["trainer_launches"] = {k: v["launches"][fn] for k, v in runs.items()}
         entry["serving_launches"] = {k: v["launches"][fn] for k, v in serving_runs.items()}
 

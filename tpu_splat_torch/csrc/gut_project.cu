@@ -30,13 +30,14 @@
 // host scalar is a product with its float32 reciprocal, as PyTorch takes it; clamps keep
 // a NaN, as PyTorch's do.
 //
-// Bound on the H100: bytes. The projection reads 45 bytes a slot and writes 69 (~120 MB
-// at 2^20 slots, ~0.036 ms at 3.35 TB/s); the rays kernel writes 16 or 32 bytes a pixel
-// (17.6 MB at 1296x840, tile 16) and reads nothing but the camera. Its arithmetic, ~700
-// FP32 operations a pixel in the 20 undistortion steps, is ~0.8 GFLOP a table, ~0.012 ms
-// at 67 TFLOP/s. Neither kernel synchronises: the camera's scalars are launch arguments,
-// w2c, the distortion coefficients bound to a view and a fisheye's max angle computed on
-// the card are read from device memory.
+// Bound on the H100: the projection by bytes, the rays by operations. The projection reads
+// 45 bytes a slot and writes 69 (~120 MB at 2^20 slots, ~0.036 ms at 3.35 TB/s); the rays
+// kernel writes 16 or 32 bytes a pixel (17.6 MB at 1296x840, tile 16, ~0.005 ms) and reads
+// nothing but the camera, and its ~855 FP32 operations a pixel (820 in the 20 undistortion
+// steps; chip_smoke.py counts them) are ~0.94 GFLOP a table, ~0.014 ms at 67 TFLOP/s.
+// Neither kernel synchronises: the camera's scalars are launch arguments, w2c, the
+// distortion coefficients bound to a view and a fisheye's max angle computed on the card
+// are read from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
