@@ -2028,6 +2028,7 @@ def adc_card_checks(t, dev) -> dict:
     children's means and scales rtol 1e-5 (einsum and exp/log on another device)."""
     import torch
 
+    from tpu_splat_torch.ops.rasterize import to_device
     from tpu_splat_torch.training.train_step import adc_refine_step, train_step
 
     ts = dataclasses.replace(t.state, dens_count=torch.zeros_like(t.state.dens_count),
@@ -2036,8 +2037,9 @@ def adc_card_checks(t, dev) -> dict:
     cam = sample.camera
     outs = {}
     for impl in ("kernel", "plain"):
-        out, _ = train_step(ts, t._device(sample.image), t._device(cam.world_view_transform),
-                            t._device(cam.cam_position), sample.fx, sample.fy, sample.cx,
+        out, _ = train_step(ts, to_device(sample.image, dev),
+                            to_device(cam.world_view_transform, dev),
+                            to_device(cam.cam_position, dev), sample.fx, sample.fy, sample.cx,
                             sample.cy, torch.zeros(3, device=dev), sample.index,
                             width=cam.image_width, height=cam.image_height, plan=t.plan,
                             opt=t.step_cfg, total_iterations=t.opt.iterations, impl=impl)

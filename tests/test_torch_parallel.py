@@ -31,6 +31,9 @@ against the JAX package's `tpu_splat/parallel/` and against itself across worlds
     both bit-equal to the sum of the port's two single-camera steps' terms (the batch's 1/2
     and its undoing are exact); the pose embeddings atol 1e-6, the grids atol 1e-5 rtol 1e-4
     (as `test_sharding.py`).
+  * The batched step on a 1x1 mesh with one camera against `train_step` on the same state,
+    camera and noise (MCMC and ADC, components off and pose opt + bilateral grid + ADMM
+    sparsity on): every leaf of the new state and the loss bit for bit.
   * `parallel/dryrun.py` over 2 gloo processes, mesh (1, 2), and over 4, mesh (2, 2): two
     steps, a refine on the gathered state and one more step; the losses, the refine's
     counts and the alive mask equal the world of one's, the gathered parameters and Adam
@@ -56,6 +59,8 @@ from tpu_splat.parallel.mesh import shard_train_state as jax_shard_train_state
 from tpu_splat.parallel.step import make_batched_train_step as jax_make_batched_step
 from tpu_splat.training import train_step as jax_ts
 from tpu_splat_torch import convert
+from tpu_splat_torch.core.config import OptimizationParameters
+from tpu_splat_torch.core.splat import init_from_pointcloud
 from tpu_splat_torch.ops.cameras import CameraParams
 from tpu_splat_torch.ops.cuda.blend import blend_backward, blend_forward
 from tpu_splat_torch.ops.projection import Projected
@@ -436,6 +441,85 @@ def test_batched_pose_bilateral_matches_jax(jax_step):
                                atol=1e-5, rtol=1e-4)
     lrs = optim.group_lrs(ts_mod.StepConfig(**kw), ts_t.splat.scene_scale)
     check_params_like_jax(ts_t2, ts_j2, compared, lrs, 1)
+
+
+def _state_leaves(x, path="ts"):
+    """(path, leaf) of a train state: tensors, generator states and host numbers."""
+    if dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _state_leaves(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _state_leaves(v, f"{path}.{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from _state_leaves(v, f"{path}[{i}]")
+    elif isinstance(x, torch.Generator):
+        yield path, x.get_state()
+    else:
+        yield path, x
+
+
+@pytest.mark.parametrize("components", [False, True], ids=["plain", "pose-bilateral-sparsity"])
+@pytest.mark.parametrize("strategy", ["mcmc", "default"])
+def test_batched_step_of_one_camera_is_train_step(strategy, components):
+    """One camera through `batched_train_step` on a 1x1 mesh and through `train_step`, from
+    the same state with the same noise: the same next state, leaf for leaf, and the same
+    loss, bit for bit. The two share their gradient head and update tail, and the batched
+    step's mean over one camera, its collectives on a mesh of one and its undoing of the
+    batch's 1/B are exact. Its loss adds the terms in another order (photo + (reg +
+    sparsity), then + tv, against ((photo + reg) + tv) + sparsity); the gradients do not
+    depend on that order, and on this scene the two sums round to the same float32."""
+    w, h, capacity = 64, 48, 512
+    rng = np.random.default_rng(5)
+    pts = rng.normal(0, 0.8, (300, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    splat = init_from_pointcloud(pts, rng.random((300, 3)).astype(np.float32),
+                                 np.array([0, 0, 5.0], np.float32), capacity, 3, device="cpu")
+    kw = dict(strategy=strategy)
+    opt = None
+    if components:
+        kw.update(pose_optimization="direct", use_bilateral_grid=True, enable_sparsity=True,
+                  sparsify_start=1, sparsify_steps=100)
+        opt = OptimizationParameters(pose_optimization="direct", use_bilateral_grid=True,
+                                     bilateral_grid_X=4, bilateral_grid_Y=4, bilateral_grid_W=4)
+    ts = ts_mod.init_train_state(splat, seed=3, n_train_images=4, opt=opt, device="cpu")
+    if components:  # grids off the identity and poses off zero: every term has a gradient
+        gen = torch.Generator().manual_seed(1)
+        ts = dataclasses.replace(
+            ts_mod.admm_init_step(ts, prune_ratio=0.6),
+            bilateral_grids=ts.bilateral_grids
+            + 0.05 * torch.randn(ts.bilateral_grids.shape, generator=gen),
+            pose_params={"embeddings": 0.01 * torch.randn(ts.pose_params["embeddings"].shape,
+                                                          generator=gen)})
+    cam = make_camera(w, h)
+    intr = np.asarray([[cam["fx"], cam["fy"], cam["cx"], cam["cy"]]], np.float32)
+    gt = rng.random((1, 3, h, w)).astype(np.float32)
+    step_kw = dict(width=w, height=h, opt=ts_mod.StepConfig(**kw), total_iterations=100,
+                   plan=ts_mod.RasterPlan(max_instances=1 << 14, k_max=256, chunk=128),
+                   noise=torch.from_numpy(rng.normal(size=(capacity, 3)).astype(np.float32)),
+                   impl="plain")
+    bg = np.zeros(3, np.float32)
+    want, st_want = ts_mod.train_step(ts, gt[0], cam["w2c"], cam["cam_position"],
+                                      *map(float, intr[0]), bg, 1, **step_kw)
+    got, st_got = make_batched_train_step(make_mesh(1))(
+        ts, gt, cam["w2c"][None], cam["cam_position"][None], intr, bg, [1], **step_kw)
+    assert torch.equal(st_got.loss, st_want.loss)
+    assert [int(v) for v in st_got[1:]] == [int(v) for v in st_want[1:]]
+    want_leaves, got_leaves = dict(_state_leaves(want)), dict(_state_leaves(got))
+    assert got_leaves.keys() == want_leaves.keys()
+    for path, v in want_leaves.items():
+        g = got_leaves[path]
+        if torch.is_tensor(v):
+            assert g.dtype == v.dtype and torch.equal(g, v), path
+        else:
+            assert g == v, path
+    assert got.iteration == 2 and not torch.equal(got.splat.means, ts.splat.means)
+    if strategy == "default":
+        assert int((got.dens_count > 0).sum()) > 100
+    if components:
+        assert not torch.equal(got.bilateral_grids, ts.bilateral_grids)
+        assert not torch.equal(got.pose_params["embeddings"], ts.pose_params["embeddings"])
 
 
 # ---------------------------------------------------------------- gloo worlds vs one

@@ -6,7 +6,8 @@ across chunks of one shape (the same storage, one allocation), a shorter chunk i
 prefix, a new shape or a longer chunk in new buffers, the fill's threads stopped by
 `close` and started again. A Trainer run over two whole chunks, a chunk cut by a progress
 report and a single step against the same run fed the host stacks: the same parameters,
-Adam moments and losses, bit for bit. The pinned route is the card's
+Adam moments and losses, bit for bit; the same for a batched run (`--batch-size` 2 and 4 on a
+1x1 mesh). The pinned route is the card's
 (`tests/test_torch_cuda.py::test_input_staging_pinned_on_card`).
 """
 
@@ -95,15 +96,14 @@ def _params(base, out):
                               optimization=opt)
 
 
-def _host_stacked_stage(self, samples, iteration):
+def _host_stacked_stage(self, samples, backgrounds):
     """The Trainer's inputs as numpy stacks, handed to `train_step_many` (and, sliced, to
-    `train_step`) as the Trainer did before the staging buffers."""
+    `train_step` and the batched step) as the Trainer did before the staging buffers."""
     cams = [s.camera for s in samples]
     return (np.stack([s.image for s in samples]),
             np.stack([c.world_view_transform for c in cams]).astype(np.float32),
             np.stack([c.cam_position for c in cams]).astype(np.float32),
-            np.stack([self.background_for_step(iteration + j)
-                      for j in range(len(samples))]))
+            np.stack(backgrounds))
 
 
 def test_trainer_through_staging_equals_host_stacks(tmp_path):
@@ -132,3 +132,34 @@ def test_trainer_through_staging_equals_host_stacks(tmp_path):
     assert 0 < staged.timings["stage"] < staged.timings["dispatch"]
     assert stacked.stage_allocs == 0
     assert staged._staging._pool is None  # `train` stopped the fill's threads
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_batched_trainer_through_staging_equals_host_stacks(tmp_path, batch):
+    """`--batch-size B` on a 1x1 mesh takes its images, cameras and background through the
+    staging buffers, allocated once for the run's one image shape, and trains to the same
+    parameters, Adam moments and losses, bit for bit, as the same run fed the host stacks."""
+    base = tmp_path / "capture"
+    make_synthetic_colmap(base, n_gauss=120, n_cams=6, size=48)
+    runs = []
+    for name in ("staged", "stacked"):
+        params = _params(base, tmp_path / name)
+        params.optimization.iterations = 6
+        params.optimization.batch_size = batch
+        t = trainer.Trainer(params, device="cpu")
+        if name == "stacked":
+            t._stage = types.MethodType(_host_stacked_stage, t)
+        t.train(progress_every=10)
+        runs.append(t)
+    staged, stacked = runs
+    assert staged.mesh.shape == {"data": 1, "gauss": 1}
+    assert staged.steps_dispatched == stacked.steps_dispatched == 6
+    assert staged.samples_drawn == 6 * batch
+    assert staged._loss_hist == stacked._loss_hist and len(staged._loss_hist) == 6
+    for got, want in ((staged.state.splat.params(), stacked.state.splat.params()),
+                      (staged.state.adam.exp_avg, stacked.state.adam.exp_avg),
+                      (staged.state.adam.exp_avg_sq, stacked.state.adam.exp_avg_sq)):
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+    assert staged.stage_allocs == 1 and stacked.stage_allocs == 0
+    assert 0 < staged.timings["stage"] < staged.timings["dispatch"]

@@ -24,7 +24,6 @@ batched step leaves it out: ROADMAP.md Queue 3).
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Any
 
@@ -35,11 +34,9 @@ from ..ops.rasterize import to_device
 from ..training import bilateral_grid as bgrid
 from ..training import poseopt as po
 from ..training import sparsity as sp
-from ..training import strategy_default, strategy_mcmc
 from ..training.losses import photometric_loss, regularization_losses
-from ..training.optim import adam_step, group_lrs, means_lr_at
-from ..training.train_step import (RasterPlan, StepStats, TrainState, active_sh_degree,
-                                   aux_adam_step, tree_leaves, tree_map, tree_unflatten)
+from ..training.train_step import (GradHead, RasterPlan, StepStats, TrainState,
+                                   active_sh_degree, tree_map, update_tail)
 from .distributed import local_batch_slice
 from .mesh import Mesh
 from .raster_mc import render_batch_mc
@@ -51,10 +48,6 @@ def make_batched_train_step(mesh: Mesh):
     impl="kernel") -> (ts, StepStats) over `mesh`; `ts` is this rank's part of the state
     (`mesh.shard_train_state`)."""
     return functools.partial(batched_train_step, mesh)
-
-
-def _requiring_grad(tree):
-    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
 def batched_train_step(
@@ -76,44 +69,34 @@ def batched_train_step(
     noise=None,  # [C, 3] standard normal for the MCMC noise (whole capacity); drawn when None
     impl: str = "kernel",
 ) -> tuple[TrainState, StepStats]:
+    """`train_step`'s gradient head and update tail (`GradHead`, `update_tail`) around the
+    mesh's render, loss and collectives."""
     splat = ts.splat
     dev = ts.device
-    it = ts.iteration
-    sh_deg = active_sh_degree(it, opt.sh_degree_interval, splat.max_sh_degree)
+    sh_deg = active_sh_degree(ts.iteration, opt.sh_degree_interval, splat.max_sh_degree)
     batch = len(gt_images)
     cams = local_batch_slice(batch, mesh)
     intr = np.asarray(intr, np.float32)
     cam_idxs = [0] * batch if cam_idxs is None else [int(i) for i in cam_idxs]
     d0 = mesh.d == 0  # the data rank of each gauss shard that adds the regularisers
-
-    use_pose = opt.pose_optimization != "none" and ts.pose_params is not None
-    use_bilateral = opt.use_bilateral_grid and ts.bilateral_grids is not None
-    use_sparsity = (opt.enable_sparsity and ts.admm is not None
-                    and sp.should_apply_loss(it, opt.sparsify_start, opt.sparsify_steps))
-    use_mean2d = opt.strategy == "default" and not opt.gut
-
-    params = _requiring_grad(splat.params())
-    pose_params = _requiring_grad(ts.pose_params) if use_pose else None
-    grids = _requiring_grad(ts.bilateral_grids) if use_bilateral else None
-    b_loc = cams.stop - cams.start
-    mean2d_offset = (torch.zeros((b_loc, splat.capacity, 2), dtype=splat.means.dtype,
-                                 device=dev, requires_grad=True) if use_mean2d else None)
+    head = GradHead(ts, opt, (cams.stop - cams.start, splat.capacity, 2))
+    params = head.params
 
     w2c_l = to_device(w2cs[cams], dev)
     cpos_l = to_device(cam_positions[cams], dev)
-    if use_pose:
-        w2c_l = torch.stack([po.apply(opt.pose_optimization, pose_params, w, cam_idxs[i])
+    if head.use_pose:
+        w2c_l = torch.stack([po.apply(opt.pose_optimization, head.pose_params, w, cam_idxs[i])
                              for i, w in zip(range(cams.start, cams.stop), w2c_l)])
         cpos_l = torch.stack([-w[:3, :3].T @ w[:3, 3] for w in w2c_l])
     out = render_batch_mc(
-        mesh, params, splat.alive, mean2d_offset, w2c_l, cpos_l, intr[cams], sh_deg,
+        mesh, params, splat.alive, head.mean2d_offset, w2c_l, cpos_l, intr[cams], sh_deg,
         to_device(bg_color, dev), width=width, height=height, plan=plan,
         dist=None if dist is None else to_device(dist[cams], dev),
         cam_params=opt.cam_params if opt.gut else None, max_angle=opt.max_angle, impl=impl,
     )
     images = out.images
-    if use_bilateral:
-        images = torch.stack([bgrid.slice_grid(grids[cam_idxs[i]], im)
+    if head.use_bilateral:
+        images = torch.stack([bgrid.slice_grid(head.grids[cam_idxs[i]], im)
                               for i, im in zip(range(cams.start, cams.stop), images)])
     gts = to_device(gt_images[cams], dev)
     photo = sum(photometric_loss(im, gt, opt.lambda_dssim)
@@ -122,75 +105,39 @@ def batched_train_step(
     n_alive = mesh.all_reduce(splat.alive.sum(dtype=torch.float32), "gauss")
     shard_reg = regularization_losses(params, splat.alive, opt.scale_reg, opt.opacity_reg,
                                       n_alive=n_alive)
-    if use_sparsity:
+    if head.use_sparsity:
         rows = mesh.shard_rows(splat.capacity * mesh.gauss)
         admm = sp.ADMMState(u=ts.admm.u[rows], z=ts.admm.z[rows])
         shard_reg = shard_reg + sp.sparsity_loss(params["opacity_raw"], splat.alive, admm,
                                                  opt.init_rho)
-    shared = bgrid.tv_loss(grids) * opt.tv_loss_weight if use_bilateral else None
+    shared = bgrid.tv_loss(head.grids) * opt.tv_loss_weight if head.use_bilateral else None
+    # photo + (reg + sparsity), then + tv: not train_step's order, whose bits it would move
     loss = photo + shard_reg if d0 else photo
     if d0 and shared is not None:
         loss = loss + shared
 
-    names = list(params)
-    inputs = [params[k] for k in names]
-    if use_mean2d:
-        inputs.append(mean2d_offset)
-    pose_leaves = tree_leaves(pose_params) if use_pose else []
-    inputs += pose_leaves
-    if use_bilateral:
-        inputs.append(grids)
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-    param_grads = {k: mesh.all_reduce(g, "data") for k, g in zip(names, grads[:len(names)])}
-    rest = grads[len(names):]
-    mean2d_grads = rest.pop(0) if use_mean2d else None
-    pose_grads = (tree_unflatten(ts.pose_params,
-                                 [mesh.all_reduce(g, "world") for g in rest[:len(pose_leaves)]])
-                  if use_pose else None)
-    bilateral_grads = mesh.all_reduce(rest[len(pose_leaves)], "data") if use_bilateral else None
+    grads = head.grads(loss)
+    grads = grads._replace(
+        params={k: mesh.all_reduce(g, "data") for k, g in grads.params.items()},
+        pose=tree_map(lambda g: mesh.all_reduce(g, "world"), grads.pose)
+        if head.use_pose else None,
+        bilateral=mesh.all_reduce(grads.bilateral, "data") if head.use_bilateral else None)
 
-    lrs = dict(group_lrs(opt, splat.scene_scale))
-    lrs["means"] = means_lr_at(lrs["means"], it - 1, total_iterations)
-    new_params, new_adam = adam_step(splat.params(), param_grads, ts.adam, lrs, it)
-    new_splat = splat.replace_params(new_params)
+    capacity = splat.capacity * mesh.gauss
 
-    if opt.strategy == "mcmc":
-        capacity = splat.capacity * mesh.gauss
-        if noise is None:
-            noise = torch.randn((capacity, 3), dtype=splat.means.dtype, device=dev,
-                                generator=ts.rng)
-        eps = to_device(noise, dev)[mesh.shard_rows(capacity)]
-        new_splat = strategy_mcmc.inject_noise(new_splat, lrs["means"], eps=eps)
+    def noise_rows():  # the whole pool's draw on every rank; this shard keeps its rows
+        pool = noise if noise is not None else torch.randn(
+            (capacity, 3), dtype=splat.means.dtype, device=dev, generator=ts.rng)
+        return to_device(pool, dev)[mesh.shard_rows(capacity)]
 
-    dens_count, dens_grad2d = ts.dens_count, ts.dens_grad2d
-    if opt.strategy == "default":
-        # per camera, with the batch mean's 1/B undone, in the global camera order
-        if mean2d_grads is None:  # GUT takes no mean2d tap: zero gradients, as JAX's
-            mean2d_grads = torch.zeros((b_loc, splat.capacity, 2), dtype=splat.means.dtype,
-                                       device=dev)
-        per_cam = mesh.all_gather(mean2d_grads * float(batch), "data")
+    def adc_rows(mean2d):  # per camera, with the batch mean's 1/B undone, in camera order
+        per_cam = mesh.all_gather(mean2d * float(batch), "data")
         visible = mesh.all_gather(out.visible, "data")
-        for b in range(batch):
-            dens_count, dens_grad2d = strategy_default.accumulate_densification(
-                dens_count, dens_grad2d, per_cam[b], visible[b], width, height)
+        return ((per_cam[b], visible[b]) for b in range(batch))
 
-    new_pose_params, new_pose_opt = ts.pose_params, ts.pose_opt
-    if use_pose:
-        new_pose_params, new_pose_opt = aux_adam_step(ts.pose_params, pose_grads,
-                                                      ts.pose_opt, opt.pose_lr)
-    new_grids, new_bopt = ts.bilateral_grids, ts.bilateral_opt
-    if use_bilateral:
-        gamma = 0.01 ** (1.0 / total_iterations)
-        blr = bgrid.warmup_exponential_lr(opt.bilateral_grid_lr, it, gamma)
-        new_grids, new_bopt = aux_adam_step(ts.bilateral_grids, bilateral_grads,
-                                            ts.bilateral_opt, blr, eps=1e-15)
-
-    new_ts = dataclasses.replace(
-        ts, splat=new_splat, adam=new_adam, iteration=it + 1, dens_count=dens_count,
-        dens_grad2d=dens_grad2d, bilateral_grids=new_grids, bilateral_opt=new_bopt,
-        pose_params=new_pose_params, pose_opt=new_pose_opt,
-    )
+    new_ts = update_tail(ts, opt, head, grads, total_iterations=total_iterations,
+                         noise_rows=noise_rows, adc_rows=adc_rows, width=width,
+                         height=height)
     # the global loss on every rank: the photometric part once a data group, the
     # regularisers once a gauss shard
     parts = torch.stack([photo.detach() if mesh.g == 0 else torch.zeros_like(photo),

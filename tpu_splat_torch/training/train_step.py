@@ -5,6 +5,9 @@ Mirrors Trainer::train_step fast path (src/training/trainer.cpp:579-858) as one 
 (the reference's separate .backward() calls sum into one loss); refinement (MCMC
 relocate/grow, ADC grow/prune/reset, the ADMM updates and prune) is dispatched by the host
 on its schedule as separate functions, keeping the step free of branches on the data.
+The step's gradient head (`GradHead`: which leaves train) and update tail (`update_tail`:
+the optimizers, the noise and ADC in their order) are shared with the batched step
+(`parallel/step.py`), which differs only in rendering, loss composition and collectives.
 
 The whole step is static-shape: capacity-C parameter tensors, instance budget / per-tile
 capacity from a host-managed `RasterPlan`; the step reports the actual counts (as device
@@ -244,6 +247,108 @@ def _leaves_requiring_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
+class StepGrads(NamedTuple):
+    params: dict  # by parameter name
+    mean2d: Optional[torch.Tensor]  # the mean2d offset's; None without the offset
+    pose: Any  # a tree like the pose parameters; None without pose opt
+    bilateral: Optional[torch.Tensor]  # the bilateral grids'; None without them
+
+
+class GradHead:
+    """What a train step differentiates, shared by `train_step` and the batched step
+    (`parallel/step.py`): the component flags, the state's leaves that take gradients
+    (the mean2d offset in `mean2d_shape`) and the split of `torch.autograd.grad`'s
+    result into `StepGrads`."""
+
+    def __init__(self, ts: TrainState, opt: Any, mean2d_shape: tuple):
+        splat = ts.splat
+        self.use_pose = opt.pose_optimization != "none" and ts.pose_params is not None
+        self.use_bilateral = opt.use_bilateral_grid and ts.bilateral_grids is not None
+        self.use_sparsity = (
+            opt.enable_sparsity and ts.admm is not None
+            and sp.should_apply_loss(ts.iteration, opt.sparsify_start, opt.sparsify_steps))
+        # dL/dmean2d through a zero offset: only ADC reads it, and GUT takes no offset
+        self.use_mean2d = opt.strategy == "default" and not opt.gut
+        self.mean2d_shape = mean2d_shape
+        self.params = _leaves_requiring_grad(splat.params())
+        self.pose_params = _leaves_requiring_grad(ts.pose_params) if self.use_pose else None
+        self.grids = _leaves_requiring_grad(ts.bilateral_grids) if self.use_bilateral else None
+        self.mean2d_offset = (torch.zeros(mean2d_shape, dtype=splat.means.dtype,
+                                          device=ts.device, requires_grad=True)
+                              if self.use_mean2d else None)
+
+    def grads(self, loss: torch.Tensor) -> StepGrads:
+        names = list(self.params)
+        inputs = [self.params[k] for k in names]
+        if self.use_mean2d:
+            inputs.append(self.mean2d_offset)
+        pose_leaves = tree_leaves(self.pose_params) if self.use_pose else []
+        inputs += pose_leaves
+        if self.use_bilateral:
+            inputs.append(self.grids)
+        grads = list(torch.autograd.grad(loss, inputs, allow_unused=True))
+        # bands above the active SH degree take no part in the render: zero gradient
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+        rest = grads[len(names):]
+        mean2d = rest.pop(0) if self.use_mean2d else None
+        return StepGrads(
+            params=dict(zip(names, grads[:len(names)])), mean2d=mean2d,
+            pose=tree_unflatten(self.pose_params, rest[:len(pose_leaves)])
+            if self.use_pose else None,
+            bilateral=rest[len(pose_leaves)] if self.use_bilateral else None)
+
+
+def update_tail(ts: TrainState, opt: Any, head: GradHead, grads: StepGrads, *,
+                total_iterations: int, noise_rows, adc_rows, width: int,
+                height: int) -> TrainState:
+    """The update that both train steps end with, in this order: the learning rates, Adam,
+    the MCMC noise (`noise_rows()`: the state's rows of the draw, None to draw them from
+    ts.rng), ADC's accumulation over `adc_rows(mean2d gradient)`'s (gradient, visibility)
+    pairs in camera order, the pose and bilateral optimizers. -> the next state."""
+    splat = ts.splat
+    it = ts.iteration
+    lrs = dict(group_lrs(opt, splat.scene_scale))
+    # ExponentialLR stepped once per iteration; iteration is 1-based so step i uses gamma^(i-1)
+    lrs["means"] = means_lr_at(lrs["means"], it - 1, total_iterations)
+
+    new_params, new_adam = adam_step(splat.params(), grads.params, ts.adam, lrs, it)
+    new_splat = splat.replace_params(new_params)
+
+    # MCMC noise injection every step, scaled by current means lr (mcmc.cpp:349-367)
+    if opt.strategy == "mcmc":
+        new_splat = strategy_mcmc.inject_noise(new_splat, lrs["means"], eps=noise_rows(),
+                                               generator=ts.rng)
+
+    # ADC densification info accumulation (kernels_backward.cuh:232-236); under GUT the
+    # mean2d gradient is zero, as in the JAX package
+    dens_count, dens_grad2d = ts.dens_count, ts.dens_grad2d
+    if opt.strategy == "default":
+        mean2d = grads.mean2d
+        if mean2d is None:
+            mean2d = torch.zeros(head.mean2d_shape, dtype=splat.means.dtype, device=ts.device)
+        for grad, visible in adc_rows(mean2d):
+            dens_count, dens_grad2d = strategy_default.accumulate_densification(
+                dens_count, dens_grad2d, grad, visible, width, height)
+
+    # component optimizers
+    new_pose_params, new_pose_opt = ts.pose_params, ts.pose_opt
+    if head.use_pose:
+        new_pose_params, new_pose_opt = aux_adam_step(ts.pose_params, grads.pose, ts.pose_opt,
+                                                      opt.pose_lr)
+    new_grids, new_bopt = ts.bilateral_grids, ts.bilateral_opt
+    if head.use_bilateral:
+        gamma = 0.01 ** (1.0 / total_iterations)
+        blr = bg.warmup_exponential_lr(opt.bilateral_grid_lr, it, gamma)
+        new_grids, new_bopt = aux_adam_step(ts.bilateral_grids, grads.bilateral,
+                                            ts.bilateral_opt, blr, eps=1e-15)
+
+    return dataclasses.replace(
+        ts, splat=new_splat, adam=new_adam, iteration=it + 1, dens_count=dens_count,
+        dens_grad2d=dens_grad2d, bilateral_grids=new_grids, bilateral_opt=new_bopt,
+        pose_params=new_pose_params, pose_opt=new_pose_opt,
+    )
+
+
 def train_step(
     ts: TrainState,
     gt_image,  # [3, H, W]
@@ -267,28 +372,16 @@ def train_step(
     or tensors."""
     splat = ts.splat
     dev = ts.device
-    it = ts.iteration
     cam_idx = int(cam_idx)
-    sh_deg = active_sh_degree(it, opt.sh_degree_interval, splat.max_sh_degree)
+    sh_deg = active_sh_degree(ts.iteration, opt.sh_degree_interval, splat.max_sh_degree)
     gt_image = to_device(gt_image, dev)
-
-    use_pose = opt.pose_optimization != "none" and ts.pose_params is not None
-    use_bilateral = opt.use_bilateral_grid and ts.bilateral_grids is not None
-    use_sparsity = (opt.enable_sparsity and ts.admm is not None
-                    and sp.should_apply_loss(it, opt.sparsify_start, opt.sparsify_steps))
-    # dL/dmean2d through a zero offset: only ADC reads it, and GUT takes no offset
-    use_mean2d = opt.strategy == "default" and not opt.gut
-
-    params = _leaves_requiring_grad(splat.params())
-    pose_params = _leaves_requiring_grad(ts.pose_params) if use_pose else None
-    grids = _leaves_requiring_grad(ts.bilateral_grids) if use_bilateral else None
-    mean2d_offset = (torch.zeros((splat.capacity, 2), dtype=splat.means.dtype, device=dev,
-                                 requires_grad=True) if use_mean2d else None)
+    head = GradHead(ts, opt, (splat.capacity, 2))
+    params = head.params
 
     w2c = to_device(w2c, dev)
     cam_position = to_device(cam_position, dev)
-    if use_pose:
-        w2c = po.apply(opt.pose_optimization, pose_params, w2c, cam_idx)
+    if head.use_pose:
+        w2c = po.apply(opt.pose_optimization, head.pose_params, w2c, cam_idx)
         cam_position = -w2c[:3, :3].T @ w2c[:3, 3]
     scene = (params["means"], params["scaling_raw"], params["rotation_raw"],
              params["opacity_raw"], params["sh0"], params["shN"], splat.alive,
@@ -304,76 +397,24 @@ def train_step(
         out = rasterize(
             *scene, width=width, height=height,
             max_instances=plan.max_instances, k_max=plan.k_max, chunk=plan.chunk,
-            tile_size=plan.tile_size, pack_bf16=plan.pack_bf16, mean2d_offset=mean2d_offset,
-            device=dev, impl=impl,
+            tile_size=plan.tile_size, pack_bf16=plan.pack_bf16,
+            mean2d_offset=head.mean2d_offset, device=dev, impl=impl,
         )
     image = out.image
-    if use_bilateral:
-        image = bg.slice_grid(grids[cam_idx], image)
+    if head.use_bilateral:
+        image = bg.slice_grid(head.grids[cam_idx], image)
     loss = photometric_loss(image, gt_image, opt.lambda_dssim)
     loss = loss + regularization_losses(params, splat.alive, opt.scale_reg, opt.opacity_reg)
-    if use_bilateral:
-        loss = loss + opt.tv_loss_weight * bg.tv_loss(grids)
-    if use_sparsity:
+    if head.use_bilateral:
+        loss = loss + opt.tv_loss_weight * bg.tv_loss(head.grids)
+    if head.use_sparsity:
         loss = loss + sp.sparsity_loss(params["opacity_raw"], splat.alive, ts.admm,
                                        opt.init_rho)
 
-    names = list(params)
-    inputs = [params[k] for k in names]
-    if use_mean2d:
-        inputs.append(mean2d_offset)
-    pose_leaves = tree_leaves(pose_params) if use_pose else []
-    inputs += pose_leaves
-    if use_bilateral:
-        inputs.append(grids)
-    grads = list(torch.autograd.grad(loss, inputs, allow_unused=True))
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-    # bands above the active SH degree take no part in the render: zero gradient
-    param_grads = dict(zip(names, grads[:len(names)]))
-    rest = grads[len(names):]
-    mean2d_grads = rest.pop(0) if use_mean2d else None
-    pose_grads = tree_unflatten(ts.pose_params, rest[:len(pose_leaves)]) if use_pose else None
-    bilateral_grads = rest[len(pose_leaves)] if use_bilateral else None
-
-    lrs = dict(group_lrs(opt, splat.scene_scale))
-    # ExponentialLR stepped once per iteration; iteration is 1-based so step i uses gamma^(i-1)
-    lrs["means"] = means_lr_at(lrs["means"], it - 1, total_iterations)
-
-    new_params, new_adam = adam_step(splat.params(), param_grads, ts.adam, lrs, it)
-    new_splat = splat.replace_params(new_params)
-
-    # MCMC noise injection every step, scaled by current means lr (mcmc.cpp:349-367)
-    if opt.strategy == "mcmc":
-        new_splat = strategy_mcmc.inject_noise(new_splat, lrs["means"], eps=noise,
-                                               generator=ts.rng)
-
-    # ADC densification info accumulation (kernels_backward.cuh:232-236); under GUT the
-    # mean2d gradient is zero, as in the JAX package
-    dens_count, dens_grad2d = ts.dens_count, ts.dens_grad2d
-    if opt.strategy == "default":
-        if mean2d_grads is None:
-            mean2d_grads = torch.zeros((splat.capacity, 2), dtype=splat.means.dtype,
-                                       device=dev)
-        dens_count, dens_grad2d = strategy_default.accumulate_densification(
-            dens_count, dens_grad2d, mean2d_grads, out.aux.visible, width, height)
-
-    # component optimizers
-    new_pose_params, new_pose_opt = ts.pose_params, ts.pose_opt
-    if use_pose:
-        new_pose_params, new_pose_opt = aux_adam_step(ts.pose_params, pose_grads, ts.pose_opt,
-                                                      opt.pose_lr)
-    new_grids, new_bopt = ts.bilateral_grids, ts.bilateral_opt
-    if use_bilateral:
-        gamma = 0.01 ** (1.0 / total_iterations)
-        blr = bg.warmup_exponential_lr(opt.bilateral_grid_lr, it, gamma)
-        new_grids, new_bopt = aux_adam_step(ts.bilateral_grids, bilateral_grads,
-                                            ts.bilateral_opt, blr, eps=1e-15)
-
-    new_ts = dataclasses.replace(
-        ts, splat=new_splat, adam=new_adam, iteration=it + 1, dens_count=dens_count,
-        dens_grad2d=dens_grad2d, bilateral_grids=new_grids, bilateral_opt=new_bopt,
-        pose_params=new_pose_params, pose_opt=new_pose_opt,
-    )
+    new_ts = update_tail(ts, opt, head, head.grads(loss), total_iterations=total_iterations,
+                         noise_rows=lambda: noise,
+                         adc_rows=lambda mean2d: [(mean2d, out.aux.visible)],
+                         width=width, height=height)
     stats = StepStats(
         loss=loss.detach(),
         total_instances=out.aux.total_instances,

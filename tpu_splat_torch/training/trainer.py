@@ -11,9 +11,9 @@ dispatch, and a rollback restores it, so a redo draws what the first try drew.
 
 Uninterrupted stretches between host hooks go to `train_step_many` in chunks of
 `scan_steps`; heterogeneous chunks (mixed image sizes or GUT camera configs) fall back to
-one dispatch a step, as in the JAX package. Either way a dispatch's images, cameras and
-backgrounds reach the device through buffers kept from chunk to chunk (`staging.py`: on a
-card, a pinned host buffer and one copy that does not block the host);
+one dispatch a step, as in the JAX package. Every dispatch, a batched step's too, takes its
+images, cameras and backgrounds to the device through buffers kept from chunk to chunk
+(`staging.py`: on a card, a pinned host buffer and one copy that does not block the host);
 `timings["stage"]` is the host's part of that, within `timings["dispatch"]`.
 
 Schedule hooks (all host-dispatched between steps, against the reference's post_backward):
@@ -75,7 +75,7 @@ from ..io.loader import LoadResult, load
 from ..io.ply import load_splat_ply, save_splat_ply
 from ..ops.cameras import CameraParams
 from ..ops.gut import HOST_SPANS, host_seconds, rasterize_gut
-from ..ops.rasterize import rasterize
+from ..ops.rasterize import rasterize, to_device
 from ..parallel.mesh import (gather_train_state, make_mesh, shard_train_state,
                              trainer_mesh_shape)
 from ..parallel.step import make_batched_train_step
@@ -418,9 +418,6 @@ class Trainer:
         self._gut_cfg_cache[key] = out
         return out
 
-    def _device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=self.device)
-
     @property
     def stage_allocs(self) -> int:
         """Staging buffers allocated: one per chunk shape."""
@@ -431,15 +428,14 @@ class Trainer:
         """Refills of the pinned staging buffer that waited for its last upload."""
         return self._staging.waits
 
-    def _stage(self, samples, iteration: int):
-        """The samples' images, world-to-camera matrices, camera positions and the
-        backgrounds of iterations `iteration`.. on the device (`InputStaging.stage`)."""
+    def _stage(self, samples, backgrounds):
+        """The samples' images, world-to-camera matrices, camera positions and
+        `backgrounds` (one a sample) on the device (`InputStaging.stage`)."""
         t0 = time.perf_counter()
         cams = [s.camera for s in samples]
         staged = self._staging.stage(
             [s.image for s in samples], [c.world_view_transform for c in cams],
-            [c.cam_position for c in cams],
-            [self.background_for_step(iteration + j) for j in range(len(samples))])
+            [c.cam_position for c in cams], backgrounds)
         self.timings["stage"] += time.perf_counter() - t0
         return staged
 
@@ -449,7 +445,8 @@ class Trainer:
         cfg, dist = (
             self._gut_cfg_for(cam) if self.step_cfg.gut else (self.step_cfg, None)
         )
-        images, w2cs, positions, bgs = self._stage([sample], iteration)
+        images, w2cs, positions, bgs = self._stage([sample],
+                                                   [self.background_for_step(iteration)])
         self.state, stats = train_step(
             self.state, images[0], w2cs[0], positions[0],
             sample.fx, sample.fy, sample.cx, sample.cy, bgs[0], sample.index, dist,
@@ -474,15 +471,13 @@ class Trainer:
             pairs = [self._gut_cfg_for(c) for c in cams]
             cfg = pairs[0][0]  # a uniform (model, shutter), checked at init
             dist_coeffs = torch.stack([p[1] for p in pairs])
+        # the batched step takes one background, its iteration's
+        images, w2cs, positions, bgs = self._stage(
+            samples, [self.background_for_step(iteration)] * len(samples))
         self.state, stats = self._batched_step(
-            self.state,
-            np.stack([s.image for s in samples]),
-            np.stack([c.world_view_transform for c in cams]).astype(np.float32),
-            np.stack([c.cam_position for c in cams]).astype(np.float32),
+            self.state, images, w2cs, positions,
             np.asarray([[s.fx, s.fy, s.cx, s.cy] for s in samples], np.float32),
-            self._device(self.background_for_step(iteration)),
-            [s.index for s in samples],
-            dist_coeffs,
+            bgs[0], [s.index for s in samples], dist_coeffs,
             width=w, height=h, plan=self.plan, opt=cfg,
             total_iterations=self.opt.iterations,
         )
@@ -529,7 +524,8 @@ class Trainer:
             cfg, dists = self.step_cfg, None
         prev, rng_state = self.state, self.state.rng.get_state()
         k = len(samples)
-        images, w2cs, positions, bgs = self._stage(samples, iteration)
+        images, w2cs, positions, bgs = self._stage(
+            samples, [self.background_for_step(iteration + j) for j in range(k)])
         self.state, stats = train_step_many(
             self.state, images, w2cs, positions,
             np.asarray([[s.fx, s.fy, s.cx, s.cy] for s in samples], np.float32),
@@ -907,7 +903,8 @@ class Trainer:
         args = (
             splat.means, splat.scaling_raw, splat.rotation_raw, splat.opacity_raw,
             splat.sh0, splat.shN, splat.alive,
-            self._device(cam.world_view_transform), self._device(cam.cam_position),
+            to_device(cam.world_view_transform, self.device),
+            to_device(cam.cam_position, self.device),
             sample.fx, sample.fy, sample.cx, sample.cy,
             sh_deg, torch.zeros(3, device=self.device),
         )
