@@ -49,15 +49,19 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
    the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
    render of a perturbed copy of the scene and one `refine_step`, with every launch count
-   set to 0 just before and read just after; checks one launch of K1-K4 a step, no call
-   of `emission_order` (K4 reads K3's rows through `emis_col`), no overflow, finite state
-   and a falling loss;
+   set to 0 just before and read just after; checks one launch of K1-K4 and of the
+   projection's two kernels a step, no call of `emission_order` (K4 reads K3's rows
+   through `emis_col`), no overflow, finite state and a falling loss;
 8. holds `rasterize`'s six parameter gradients through the kernels against the plain
    versions at the train step's shapes, and K2-bf16 (with its stop decisions and pair
    counts), K3 (and its repeatability) and K4 (through `emis_col`; bit-equal on runs of at
    most 64 slots to the plain version and to the gather followed by K4, and on two
    launches) against their plain versions on the step's own inputs, and times them, the
-   path K4 replaces (gather + K4) and the library yardstick; times the step (wall) and its
+   path K4 replaces (gather + K4) and the library yardstick; `projection-kernels`
+   (`projection_phase`): the pinhole projection's forward and backward kernels
+   (`csrc/projection.cu`) against the plain chain on the scene in 2^20 slots at 1296x840,
+   tile 16 (the forward bit-equal at SH 0-3, the backward's six gradients at SH 3), their
+   card times, byte bounds and the chain's times; times the step (wall) and its
    stages (CUDA events);
 9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
    distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
@@ -128,7 +132,8 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    (losses, the refine, the gathered parameters); `trainer-batched` (inside the trainer
    phases), the CLI with `--batch-size 4` on the capture: it/s, images/s, PSNR, launches
    (4 a step, one more an eval render);
-11. prints a `kernels` JSON line (all seven kernels and the two GUT projection kernels; K2
+11. prints a `kernels` JSON line (all seven kernels, the pinhole projection's two and the
+   two GUT projection kernels; K2
    in both layouts, K4 at both row counts; K5 and K6 with their pair counts and ptxas'
    registers and spills; each kernel's
    launches in the trainer phases' runs and in the serving phases'), a `frame`
@@ -200,6 +205,19 @@ GUT_RAYS_BYTES_PER_PIXEL = 16
 # the cuBLAS kernel of the plain chain's UT-mean einsum at 2^16 slots and more, whose
 # summation order the UT projection kernel repeats (csrc/gut_project.cu)
 UT_MEAN_BLAS = "gemv2N"
+# The pinhole projection kernels (csrc/projection.cu), bytes a slot counted from the source at
+# SH 3 (15 rest coefficients). Forward: reads means 12, scaling 12, rotation 16, opacity 4,
+# alive 1, sh0 12, shN 180; writes mean2d 8, conic 12, opacity 4, colour 12, depth 4, the
+# tile rects 16, n_tiles 4, power_threshold 4, visible 1. Backward: reads the inputs but sh0
+# (225), the cotangents of mean2d, conic, opacity, colour and depth (40; power_threshold's
+# is absent in a step), writes the six gradients (236)
+PROJECT_FWD_BYTES_PER_SLOT = 237 + 65
+PROJECT_BWD_BYTES_PER_SLOT = 225 + 40 + 236
+# the cuBLAS kernel of the plain chain's `means @ w2c[i, :3]`, whose order the forward
+# kernel repeats (csrc/projection.cu)
+PROJECTION_BLAS = "gemvx"
+# the projection's two wrappers: once a pinhole step (the forward once a frame too)
+PROJECTION_KERNELS = ("project_kernel", "project_backward_kernel")
 # the wrappers a pinhole step or render never launches: K5, K6, K7 (the Trainer reduces
 # through K4), the UT projection and the world rays
 NO_PINHOLE_LAUNCH = ("gut_blend_forward", "gut_blend_backward", "segred_prefix",
@@ -1019,6 +1037,171 @@ def gut_projection_phase(sp, focal: float, dev) -> dict:
     torch.cuda.synchronize()
     return out
 
+def projection_cotangents(n: int, alive, dev, seed: int = 5):
+    """Random cotangents of `Projected`'s mean2d, conic, opacity, color and depth, zero on
+    the dead slots (as the blend gives them)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    live = alive.to(torch.float32)
+    shapes = ((n, 2), (n, 3), (n,), (n, 3), (n,))
+    return [torch.randn(shape, device=dev, generator=gen) * live.view(n, *[1] * (len(shape) - 1))
+            for shape in shapes]
+
+
+def projection_grads(slots, cam, degree: int, impl: str, cotangents, dtype=None):
+    """The six parameter gradients of `project` at `cotangents`, through `impl`, the float
+    inputs in `dtype` (None: as given); a leaf the outputs do not reach gets zeros."""
+    import torch
+
+    from tpu_splat_torch.ops.projection import project
+
+    w2c, cam_position, *rest = cam
+    leaves = [x.detach().to(dtype or x.dtype).requires_grad_(True) for x in slots[:6]]
+    pr = project(*leaves, slots[6], w2c.to(leaves[0].dtype), cam_position.to(leaves[0].dtype),
+                 *rest[:6], degree, tile_size=rest[6], impl=impl)
+    outs = (pr.mean2d, pr.conic, pr.opacity, pr.color, pr.depth)
+    grads = torch.autograd.grad(outs, leaves, [c.to(o.dtype) for c, o in zip(cotangents, outs)],
+                                allow_unused=True)  # the chain leaves shN out at SH 0
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+
+
+def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> dict:
+    """`project` through its kernels against its plain chain on the same slots (means,
+    scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive) and camera (w2c, cam_position,
+    fx, fy, cx, cy, width, height, tile) at SH `degree`: every field bit-equal (a NaN where
+    the chain has one), one forward launch, and on the card the chain's `means @ w2c[i, :3]`
+    through cuBLAS's PROJECTION_BLAS, the order the kernel repeats. With `cotangents` (of
+    mean2d, conic, opacity, color, depth) also the backward, one launch: each of the six
+    gradients within 1e-4 of its largest absolute value of the chain's autograd gradient
+    (K3's convention), finite wherever the chain's is, zero where the chain's is on the
+    dead slots (whose cotangents are zero), the coefficients of bands above `degree` exactly
+    zero, and no further from the chain run in float64 than twice the float32 chain is,
+    plus 1e-6 of the largest. -> the gaps"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
+    from tpu_splat_torch.ops.projection import Projected, project
+
+    w2c, cam_position, fx, fy, cx, cy, width, height, tile = cam
+    args = (*slots, w2c, cam_position, fx, fy, cx, cy, width, height, degree)
+    card = slots[0].is_cuda
+    launches = project_kernel.launches
+    got = project(*args, tile_size=tile)
+    require(project_kernel.launches == launches + card,
+            f"{label}: project must launch its forward kernel once on the card")
+
+    def chain():
+        return project(*args, tile_size=tile, impl="plain")
+
+    blas = []
+    if card:
+        want, names = cuda_kernel_names(chain)
+        blas = [k[:64] for k in names if "gemv" in k or "gemm" in k]
+        require(any(PROJECTION_BLAS in k for k in blas),
+                (f"{label}: the chain's means @ w2c ran another cuBLAS kernel than "
+                 f"{PROJECTION_BLAS}, whose order the kernel repeats", blas))
+    else:
+        want = chain()
+    gaps = dict(visible=int(want.visible.sum()), blas=blas, not_bit_equal={})
+    require(gaps["visible"] > 1000, f"{label}: {gaps['visible']} visible slots")
+    for name, g, w in zip(Projected._fields, got, want):
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w)) if g.dtype.is_floating_point \
+            else g == w
+        gaps["not_bit_equal"][name] = int((~same).sum())
+    require(not any(gaps["not_bit_equal"].values()),
+            (f"{label}: fields not bit-equal to the chain", gaps["not_bit_equal"]))
+    if cotangents is None:
+        return gaps
+    launches = project_backward_kernel.launches
+    g_k = projection_grads(slots, cam, degree, "kernel", cotangents)
+    require(project_backward_kernel.launches == launches + card,
+            f"{label}: the backward must launch its kernel once on the card")
+    g_c = projection_grads(slots, cam, degree, "plain", cotangents)
+    g_d = projection_grads(slots, cam, degree, "plain", cotangents, torch.float64)
+    dead = ~slots[6]
+    rest = (0, 3, 8, 15)[degree]
+    gaps["grads"] = {}
+    for name, k, c, d in zip(("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0",
+                               "shN"), g_k, g_c, g_d):
+        fin = torch.isfinite(c)
+        require(bool(torch.isfinite(k)[fin].all()), f"{label}: {name}: a non-finite gradient "
+                "where the chain's is finite")
+        zero = (c == 0) & dead.reshape(-1, *[1] * (c.dim() - 1))
+        require(bool((k[zero] == 0).all()), f"{label}: {name}: non-zero on a dead slot")
+        scale = float(c[fin].abs().max())
+        gap = float((k - c)[fin].abs().max())
+        require(gap <= 1e-4 * scale, (f"{label}: {name} gradient", gap, scale))
+        e_k = float((k.double() - d)[fin].abs().max())
+        e_c = float((c.double() - d)[fin].abs().max())
+        require(e_k <= 2.0 * e_c + 1e-6 * scale,
+                (f"{label}: {name} gradient further from the float64 chain than the "
+                 "float32 chain", e_k, e_c))
+        gaps["grads"][name] = dict(max_abs=gap, scale=scale, f64_kernel=e_k, f64_chain=e_c)
+    require(not bool(g_k[5][:, rest:].any()),
+            f"{label}: a coefficient above SH degree {degree} has a gradient")
+    return gaps
+
+
+def projection_phase(sp, focal: float, dev) -> dict:
+    """`projection-kernels`: the pinhole projection's two kernels (`csrc/projection.cu`)
+    against the plain chain (`check_projection`) on the state's slots (the dead ones among
+    them) at WIDTH x HEIGHT, tile 16 (the cell's plan), from a camera turned 0.1 rad and
+    set 3 units into the scene, so that a tenth of it lies behind: the forward bit-equal at
+    SH 0-3, the backward at SH 3. Times both kernels (`queued_ms`: the card's time;
+    `cuda_ms`: with the launch's host cost), their byte bounds, the chain's forward and
+    its forward and backward under autograd (`cuda_ms`), and the same through the kernels.
+    -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.projection import (camera_args, project_backward_kernel,
+                                                      project_kernel)
+    from tpu_splat_torch.ops.projection import project
+
+    c, s_ = math.cos(0.1), math.sin(0.1)
+    w2c = torch.tensor([[c, 0, s_, 0.1], [0, 1, 0, -0.05], [-s_, 0, c, -3.0], [0, 0, 0, 1]],
+                       dtype=torch.float32, device=dev)
+    cam_position = -w2c[:3, :3].T @ w2c[:3, 3]
+    tile = 16
+    cam = (w2c, cam_position, focal, focal, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, tile)
+    slots = (sp.means, sp.scaling_raw, sp.rotation_raw, sp.opacity_raw, sp.sh0, sp.shN,
+             sp.alive)
+    n = int(sp.means.shape[0])
+    cot = projection_cotangents(n, sp.alive, dev)
+    out = dict(slots=n, dead=int((~sp.alive).sum()), width=WIDTH, height=HEIGHT, tile=tile,
+               degrees={})
+    for degree in (0, 1, 2, 3):
+        out["degrees"][degree] = check_projection(
+            slots, cam, degree, f"projection SH {degree}", cot if degree == 3 else None)
+    kcam = camera_args(focal, focal, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, tile, 3,
+                       sp.shN.shape[1])
+    kargs = (*slots, w2c, cam_position, kcam)
+
+    def fwd():
+        return project_kernel(*kargs)
+
+    def bwd():
+        return project_backward_kernel(*kargs, *cot)
+
+    def through(impl):
+        return lambda: projection_grads(slots, cam, 3, impl, cot)
+
+    out.update(
+        fwd_ms=queued_ms(fwd, 20), fwd_ms_with_launch=cuda_ms(fwd, 20),
+        bwd_ms=queued_ms(bwd, 20), bwd_ms_with_launch=cuda_ms(bwd, 20),
+        chain_fwd_ms=cuda_ms(lambda: project(*slots, *cam[:8], 3, tile_size=tile,
+                                             impl="plain"), 5, warmup=1),
+        chain_fwd_bwd_ms=cuda_ms(through("plain"), 5, warmup=1),
+        kernels_fwd_bwd_ms=cuda_ms(through("kernel"), 20),
+        fwd_bytes=PROJECT_FWD_BYTES_PER_SLOT * n, bwd_bytes=PROJECT_BWD_BYTES_PER_SLOT * n)
+    out["fwd_bound_ms"] = bound_ms(out["fwd_bytes"], 0)[0]
+    out["bwd_bound_ms"] = bound_ms(out["bwd_bytes"], 0)[0]
+    out["bwd_max_gap"] = max(v["max_abs"] / v["scale"]
+                             for v in out["degrees"][3]["grads"].values())
+    torch.cuda.synchronize()
+    return out
+
+
 def train_setup(params, focal, dev, cam_params=None, sh_degree=3):
     """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
     image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
@@ -1416,7 +1599,8 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     require(launches["segred_prefix"] == GUT_PREFIX_STEPS
             and launches["segsum_emission"] == GUT_STEPS - GUT_PREFIX_STEPS,
             f"K4 or K7 must launch once a step: {launches}")
-    require(launches["blend_forward"] == 0 and launches["blend_backward"] == 0, launches)
+    require(all(launches[k] == 0 for k in ("blend_forward", "blend_backward",
+                                            *PROJECTION_KERNELS)), launches)
     require(all(launches[k] == GUT_STEPS for k in ("ut_project_kernel",
                                                    "pixel_world_rays_kernel")),
             f"the UT projection and world-ray kernels must launch once a step: {launches}")
@@ -1881,6 +2065,7 @@ def trainer_phases(params, focal, dev, counted) -> dict:
                 and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
                 f"K1-K4 must launch once a step (K1, K2 also once an eval render): "
                 f"{launches}, {steps} steps, {evals} eval renders")
+        require_projection_launches(launches, steps, evals, "trainer-pinhole")
         require(len(t._loss_hist) == TRAINER_ITERS and steps >= TRAINER_ITERS, pin)
         require(all(math.isfinite(v) for v in t._loss_hist), "non-finite trainer loss")
         require(pin["loss_last8"] < pin["loss_first8"], ("the loss did not fall", pin))
@@ -1912,9 +2097,9 @@ def trainer_phases(params, focal, dev, counted) -> dict:
                                                     "ut_project_kernel",
                                                     "pixel_world_rays_kernel"))
                 and all(launches[k] == 0 for k in ("blend_forward", "blend_backward",
-                                                    "segred_prefix")),
+                                                    "segred_prefix", *PROJECTION_KERNELS)),
                 f"K1, K5, K6, K4, the UT projection and the world rays must launch once a "
-                f"GUT step: {launches}, {steps} steps")
+                f"GUT step, the pinhole projection never: {launches}, {steps} steps")
         require(len(t._loss_hist) == TRAINER_GUT_ITERS
                 and all(math.isfinite(v) for v in t._loss_hist), "GUT trainer losses")
         require(gut["loss_last8"] < gut["loss_first8"], ("the GUT loss did not fall", gut))
@@ -1962,14 +2147,28 @@ def trainer_phases(params, focal, dev, counted) -> dict:
                 resume=resume, components=components, live=live)
 
 
-def require_launches(launches: dict, t, label: str) -> None:
-    """K1-K4 once a pinhole step, K1 and K2 once more an eval render, no GUT kernel."""
+def require_projection_launches(launches: dict, steps: int, renders: int, label: str,
+                                pose: bool = False) -> None:
+    """The projection's forward kernel once a pinhole step and once a render, its backward
+    once a step; with `pose` (pose optimisation: w2c takes a gradient) the steps take the
+    chain, so only the renders launch the forward."""
+    steps = 0 if pose else steps
+    require(launches["project_kernel"] == steps + renders
+            and launches["project_backward_kernel"] == steps,
+            (f"{label}: the projection kernels must launch once a step (the forward also "
+             "once a render)", launches, steps, renders))
+
+
+def require_launches(launches: dict, t, label: str, pose: bool = False) -> None:
+    """K1-K4 once a pinhole step, K1 and K2 once more an eval render, the projection's two
+    as `require_projection_launches` says, no GUT kernel."""
     steps, evals = t.steps_dispatched, t.eval_renders
     require(all(launches[k] == steps + evals for k in ("expand_emission", "blend_forward"))
             and all(launches[k] == steps for k in ("blend_backward", "segsum_emission"))
             and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             f"{label}: K1-K4 must launch once a step (K1, K2 also once an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
+    require_projection_launches(launches, steps, evals, label, pose)
 
 
 def require_alive_chain(t, label: str) -> list:
@@ -2296,7 +2495,7 @@ def trainer_components_phase(root: Path, dev, counted) -> dict:
     t, launches, wall = trainer_run(dict(base, iterations=COMPONENT_ITERS,
                                          use_bilateral_grid=True, pose_optimization="mlp"),
                                     root / "capture", root / "components", dev, counted)
-    require_launches(launches, t, "trainer-components grid+pose")
+    require_launches(launches, t, "trainer-components grid+pose", pose=True)
     ts = t.state
     require(all(math.isfinite(v) for v in t._loss_hist)
             and len(t._loss_hist) == COMPONENT_ITERS, "component run losses")
@@ -2507,7 +2706,8 @@ def sh4_train_steps(params4, focal, dev, counted) -> dict:
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     require(all(launches[fn.__name__] == (SH4_STEPS if fn in counted[:4] else 0)
-                for fn in counted), f"SH 4 steps: K1-K4 once a step: {launches}")
+                for fn in counted),
+            f"SH 4 steps: K1-K4 once a step, the projection through its chain: {launches}")
     require(all(math.isfinite(v) for v in losses), "non-finite SH 4 loss")
     for k, v in ts.splat.params().items():
         require(bool(torch.isfinite(v).all()), f"non-finite {k} after SH 4 steps")
@@ -2750,6 +2950,7 @@ def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dic
             and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             ("trainer-live launches", launches, steps, evals, t.timelapse_renders,
              t.viewer_renders))
+    require_projection_launches(launches, steps, renders, "trainer-live")
     require(len(t._loss_hist) == LIVE_ITERS and all(math.isfinite(v) for v in t._loss_hist),
             "trainer-live losses")
     its = [s["iteration"] for s in log_["status"]]
@@ -3017,7 +3218,7 @@ def batched_step_phase(params, focal, dev, counted, plan) -> dict:
         wall.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(st.loss))
     launches = {fn.__name__: fn.launches for fn in counted}
-    require(all(launches[fn.__name__] == (BATCH * BATCHED_STEPS if fn in counted[:4] else 0)
+    require(all(launches[fn.__name__] == (BATCH * BATCHED_STEPS if fn in counted[:6] else 0)
                 for fn in counted), f"K1-K4 must launch {BATCH} times a step: {launches}")
     require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
             ("batched losses", losses))
@@ -3224,6 +3425,7 @@ def trainer_batched_phase(root: Path, dev, counted) -> dict:
             and all(launches[k] == 0 for k in NO_PINHOLE_LAUNCH),
             f"K1-K4 must launch {BATCH} times a step (K1, K2 once more an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
+    require_projection_launches(launches, BATCH * steps, evals, "trainer-batched")
     require(len(t._loss_hist) == last and all(math.isfinite(v) for v in t._loss_hist),
             "batched trainer losses")
     res = trainer_summary(t, launches, t.wall_s)
@@ -3327,6 +3529,7 @@ def main() -> int:
                                                       gut_blend_forward_plain)
     from tpu_splat_torch.ops.cuda.gut_project import (pixel_world_rays_kernel,
                                                       ut_project_kernel)
+    from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
     from tpu_splat_torch.ops.cuda import raster
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
                                                  expand_emission, expand_emission_plain,
@@ -3348,8 +3551,8 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
     counted = (expand_emission, blend_forward, blend_backward, segsum_emission,
-               gut_blend_forward, gut_blend_backward, segred_prefix, ut_project_kernel,
-               pixel_world_rays_kernel)
+               project_kernel, project_backward_kernel, gut_blend_forward, gut_blend_backward,
+               segred_prefix, ut_project_kernel, pixel_world_rays_kernel)
     render_kernels = ("expand_emission", "blend_forward")  # the render path's two
 
     # -- build every kernel of the path from the checkout's sources
@@ -3608,9 +3811,10 @@ def main() -> int:
     losses = [float(st.loss) for st in stats]
     totals = [int(st.total_instances) for st in stats]
     ktiles = [int(st.max_tile_count) for st in stats]
-    require(all(train_launches[fn.__name__] == (TRAIN_STEPS if fn in counted[:4] else 0)
+    require(all(train_launches[fn.__name__] == (TRAIN_STEPS if fn in counted[:6] else 0)
                 for fn in counted),
-            f"K1-K4 must launch once a step and no GUT kernel: {train_launches}")
+            f"K1-K4 and the projection's two must launch once a step and no GUT kernel: "
+            f"{train_launches}")
     require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
             ("overflow", max(totals), max(ktiles), plan))
     require(all(math.isfinite(v) for v in losses), "non-finite loss")
@@ -3712,6 +3916,26 @@ def main() -> int:
           k3_ops=k3_ops, pairs=pairs_t, tile_instances=n_valid_t, emission_slots=n_slots_t,
           k3_rel_err=k3_err, k4=k4)
     del k2b, k2b_plain, k3, k3_plain, inst_t, flat_t, bwd_t
+    torch.cuda.empty_cache()
+
+    # -- the pinhole projection's two kernels against the chain on the scene in 2^20 slots
+    # (the cell's capacity) at the cell's camera size and tile, and their times
+    proj_p = projection_phase(padded_splat(params, 1 << 20, dev), focal, dev)
+    phase("projection-kernels", **proj_p)
+    for name, fn_name, part, err, plain in (
+        ("projection", "project_kernel", "fwd", 0.0, proj_p["chain_fwd_ms"]),
+        ("projection_bwd", "project_backward_kernel", "bwd", proj_p["bwd_max_gap"],
+         proj_p["chain_fwd_bwd_ms"]),
+    ):
+        kernels.append(dict(
+            name=name, route="cuda", source="tpu_splat_torch/csrc/projection.cu",
+            shapes=f"{proj_p['slots']} slots, {WIDTH}x{HEIGHT}, tile 16, SH 3",
+            replaces="tpu_splat/ops/projection.py:46", launches=train_launches[fn_name],
+            max_abs_err=err, ms=proj_p[f"{part}_ms"], plain_ms=plain,
+            bound_ms=proj_p[f"{part}_bound_ms"], bound_by="bytes", library_ms=None,
+            bytes=proj_p[f"{part}_bytes"], ms_with_launch=proj_p[f"{part}_ms_with_launch"]))
+    kernels[-1]["plain_covers"] = "the chain's forward and backward under autograd"
+    kernels[-1]["max_abs_err_of"] = "the largest leaf's gap over its largest gradient"
     torch.cuda.empty_cache()
 
     # -- the step's split: the stages of train_step, each between two CUDA events
@@ -3819,8 +4043,9 @@ def main() -> int:
     serving_runs = dict(view_sog_cli=view_sog["cli"], point_cloud=view_sog["frames"]["point_cloud"],
                         sh4_frame=view_sog["frames"]["sh_degree_4"], sh4_steps=view_sog["sh4_steps"],
                         viewer=viewer_res, trainer_live=trainer["live"])
-    # gut_project.cu holds two kernels: those go by their entries' names
-    wrapper_of.update(gut_project="ut_project_kernel", gut_rays="pixel_world_rays_kernel")
+    # gut_project.cu and projection.cu hold two kernels each: those go by their entries' names
+    wrapper_of.update(gut_project="ut_project_kernel", gut_rays="pixel_world_rays_kernel",
+                      projection="project_kernel", projection_bwd="project_backward_kernel")
     for entry in kernels:
         fn = wrapper_of.get(entry["name"]) or wrapper_of[entry["source"].rsplit("/", 1)[1]]
         entry["trainer_launches"] = {k: v["launches"][fn] for k, v in runs.items()}

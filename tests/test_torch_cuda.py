@@ -35,7 +35,14 @@ and tile rects equal but for at most 3 slots with a plain rect edge within 1e-4 
 boundary, rays rtol 1e-5 (atol 1e-6); the chains' cuBLAS calls take the UT mean's fused
 sequence (gemv2N, checked) at 2^16 slots and more, so the scenes hold 2^17 slots
 (csrc/gut_project.cu), and the kernel is also held against the chain in float64, no
-further from it than twice the float32 chain; neither kernel path synchronises.
+further from it than twice the float32 chain; neither kernel path synchronises;
+the pinhole projection's kernels (`project`) against its plain chain: the forward bit-equal
+(NaN where NaN) at SH 0-3 on 2^17 slots (the chain's `means @ w2c` through cuBLAS's gemvx,
+checked, whose order the kernel repeats), the backward's six gradients within 1e-4 of each
+leaf's largest (K3's convention), finite where the chain's are, zero on dead slots and above
+the active degree, and no further from the chain in float64 than twice the float32 chain;
+neither projection kernel synchronises; each launches once a train step, and a step with
+pose optimisation takes the chain.
 """
 
 import dataclasses
@@ -51,17 +58,21 @@ from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backwar
 from tpu_splat_torch.ops import gut
 from tpu_splat_torch.ops.cuda.gut_kernels import gut_blend_forward
 from tpu_splat_torch.ops.cuda.gut_project import pixel_world_rays_kernel, ut_project_kernel
+from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
+from tpu_splat_torch.ops.projection import project
 from tpu_splat_torch.ops.cameras import CameraParams, bind_coeffs, fisheye_max_angle
 from tpu_splat_torch.ops.cuda.raster import (LONG_RUN, emission_columns, expand_emission,
                                              expand_emission_plain, segred_prefix,
                                              segred_prefix_plain, segsum_emission,
                                              segsum_emission_plain)
 from tpu_splat_torch.training.staging import InputStaging
+from tpu_splat_torch.core.config import OptimizationParameters
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
 from chip_smoke import (blend_pairs, check_gut_kernels, check_gut_projection, check_gut_rays,
-                        gut_border_segments, gut_test_cameras, random_gut_segments,
+                        check_projection, gut_border_segments, gut_test_cameras,
+                        projection_cotangents, projection_grads, random_gut_segments,
                         random_segments)
 from torch_fixtures import blend_fixture, emission_runs
 
@@ -923,3 +934,164 @@ def test_gut_projection_kernels_do_not_synchronise_on_card():
     torch.cuda.synchronize()
     assert (ut_project_kernel.launches, pixel_world_rays_kernel.launches) == (
         launches[0] + 2, launches[1] + 2)
+
+
+_PROJ_W, _PROJ_H, _PROJ_TILE = 320, 200, 16
+
+
+def _projection_case(dev, n=1 << 17, seed=4):
+    """2^17 slots with SH 3 coefficients seen through a rotated pinhole camera, built in
+    camera space. In groups of n // 16: behind the camera; on the near plane (the rounding
+    of the camera transform puts them on both sides); on the image's edges and on tile boundaries; opacities within 64 ulps of 1/255;
+    rotations with |q|^2 within 64 ulps of the 1e-8 cull; needles of 400 units by 1e-4 a
+    unit from the camera, diagonal in the image, whose 2D covariance is rank one up to
+    rounding, so that its determinant (with the dilation, at least 0.09 in exact
+    arithmetic) is rounding noise about the 1e-8 cull; the rest inside a frustum 20% wider
+    than the image; a tenth of all slots dead. -> (slots on `dev`, camera)"""
+    gen = torch.Generator().manual_seed(seed)
+    w, h = _PROJ_W, _PROJ_H
+    fx, fy, cx, cy = 0.8 * w, 0.85 * w, w / 2 + 3.0, h / 2 - 2.0
+    rand = lambda *shape: torch.rand(shape, generator=gen)
+    u, v, z = rand(n) * 1.4 * w - 0.2 * w, rand(n) * 1.4 * h - 0.2 * h, rand(n) * 8 + 0.5
+    scaling = torch.log(rand(n, 3) * 0.05 + 0.002)
+    rotation = torch.randn((n, 4), generator=gen)
+    opacity = torch.randn((n, 1), generator=gen) * 2
+    g = n // 16
+    groups = [slice(i * g, (i + 1) * g) for i in range(6)]
+    z[groups[0]] = rand(g) * 3.0 - 3.0
+    z[groups[1]] = 0.01  # the camera transform's rounding puts them on both sides
+    edge = groups[2]
+    u[edge] = (torch.randint(0, w // _PROJ_TILE + 1, (g,), generator=gen) * _PROJ_TILE
+               + (rand(g) - 0.5) * 1e-3).float()
+    v[edge] = (torch.randint(0, h // _PROJ_TILE + 1, (g,), generator=gen) * _PROJ_TILE
+               + (rand(g) - 0.5) * 1e-3).float()
+    logit = np.float32(np.log(1.0 / 254.0))
+    step = float(np.nextafter(logit, np.float32(0)) - logit)
+    opacity[groups[3], 0] = float(logit) + torch.randint(-64, 65, (g,), generator=gen) * step
+    q = torch.nn.functional.normalize(torch.randn((g, 4), generator=gen), dim=1) * 1e-4
+    rotation[groups[4]] = q * (1 + torch.randint(-64, 65, (g, 1), generator=gen) * 2.0 ** -23)
+    needle = groups[5]
+    z[needle] = rand(g) + 0.5
+    scaling[needle] = torch.tensor([np.log(400.0), np.log(1e-4), np.log(1e-4)],
+                                   dtype=torch.float32)
+    rotation[needle] = torch.tensor([np.cos(np.pi / 8), 0, 0, np.sin(np.pi / 8)],
+                                    dtype=torch.float32)
+    opacity[needle] = 3.0
+    p_cam = torch.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], dim=1)
+    c, s_ = np.cos(0.2), np.sin(0.2)
+    w2c = torch.tensor([[c, 0, s_, 0.1], [0, 1, 0, -0.05], [-s_, 0, c, 0.3], [0, 0, 0, 1]],
+                       dtype=torch.float32)
+    means = (p_cam - w2c[:3, 3]) @ w2c[:3, :3]  # R^T (p - t), row by row
+    alive = rand(n) > 0.1
+    alive[needle] = True
+    sh0 = torch.randn((n, 1, 3), generator=gen) * 0.5
+    shN = torch.randn((n, 15, 3), generator=gen) * 0.1
+    slots = [x.to(dev) for x in (means, scaling, rotation, opacity, sh0, shN, alive)]
+    w2c = w2c.to(dev)
+    cam_position = -w2c[:3, :3].T @ w2c[:3, 3]
+    return slots, (w2c, cam_position, fx, fy, cx, cy, w, h, _PROJ_TILE), groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_projection_kernels_match_chain_on_card(degree):
+    """`project` through its two kernels against its plain chain on the card
+    (`chip_smoke.check_projection`) at SH `degree`: every field bit-equal, the backward's six
+    gradients within 1e-4 of each leaf's largest and as close to the float64 chain as the
+    float32 chain (twice its distance), zero on dead slots and above the degree, over all
+    slots and again with cotangents on the ordinary slots alone. The
+    special groups decide both ways: near-plane, opacity and |q|^2 slots on both sides of
+    their culls, and needles culled by their determinant as well as kept. Prints the gaps."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    slots, cam, groups = _projection_case(dev)
+    cot = projection_cotangents(slots[0].shape[0], slots[6], dev)
+    gaps = check_projection(slots, cam, degree, f"SH {degree}", cot)
+    # the same with cotangents on the ordinary slots alone, whose largest gradients are
+    # not the needles' and the near plane's (~1e11): the tolerance is then their own
+    ordinary = torch.zeros_like(slots[6])
+    ordinary[groups[-1].stop:] = True
+    cot = [c * ordinary.view(-1, *[1] * (c.dim() - 1)) for c in cot]
+    gaps["ordinary"] = check_projection(slots, cam, degree, f"SH {degree} ordinary", cot)
+    proj = project(*slots, *cam[:8], degree, tile_size=cam[8])
+    alive = slots[6]
+    for name, grp in (("near plane", groups[1]), ("opacity", groups[3]), ("|q|^2", groups[4]),
+                      ("needles", groups[5])):
+        vis = proj.visible[grp][alive[grp]]
+        assert 0 < int(vis.sum()) < vis.numel(), (name, int(vis.sum()), vis.numel())
+    assert not bool(proj.visible[groups[0]].any())
+    print(f"PROJECTION_GAPS SH {degree} {gaps}")
+
+
+@pytest.mark.cuda
+def test_projection_kernels_do_not_synchronise_on_card():
+    """`project` forward and backward through its kernels under
+    `torch.cuda.set_sync_debug_mode("error")`, after a warm-up call: nothing raises, i.e.
+    neither kernel path synchronises, and each kernel launches once a call. The plain
+    chain, which copies host scalars to the card, raises there."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    slots, cam, _ = _projection_case(dev, n=1 << 16)
+    cot = projection_cotangents(slots[0].shape[0], slots[6], dev)
+    projection_grads(slots, cam, 3, "kernel", cot)
+    torch.cuda.synchronize()
+    launches = project_kernel.launches, project_backward_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            projection_grads(slots, cam, 3, "kernel", cot)
+        with pytest.raises(RuntimeError):
+            project(*slots, *cam[:8], 3, tile_size=cam[8], impl="plain")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (project_kernel.launches, project_backward_kernel.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+def _small_train_case(pose: str = "none"):
+    """A 3000-Gaussian scene in 4096 slots at 128x128 and a fresh state (with `pose`
+    optimisation) and the step's arguments, as `test_train_step_through_kernels_...`'s."""
+    rng = np.random.default_rng(0)
+    n, cap, size = 3000, 4096, 128
+    pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    params = dict(
+        means=pts, sh0=rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+        shN=rng.normal(0, 0.05, (n, 15, 3)).astype(np.float32),
+        scaling_raw=np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(np.float32),
+        rotation_raw=rng.normal(0, 1, (n, 4)).astype(np.float32),
+        opacity_raw=rng.normal(0, 1, (n, 1)).astype(np.float32))
+    pad = lambda x: np.concatenate([x, np.ones((cap - n,) + x.shape[1:], np.float32)])
+    splat = splat_from_numpy({k: pad(v) for k, v in params.items()}, np.arange(cap) < n, 3,
+                             "cuda")
+    f = 0.5 * size / np.tan(np.radians(30.0))
+    args = (rng.random((3, size, size)).astype(np.float32), np.eye(4, dtype=np.float32),
+            np.zeros(3, np.float32), f, f, size / 2, size / 2, np.zeros(3, np.float32))
+    plan = RasterPlan(max_instances=1 << 17, k_max=2048, chunk=256, tile_size=32,
+                      pack_bf16=True)
+    ts = init_train_state(splat, seed=1, n_train_images=2,
+                          opt=OptimizationParameters(pose_optimization=pose))
+    kw = dict(width=size, height=size, plan=plan, total_iterations=100,
+              opt=StepConfig(pose_optimization=pose))
+    return ts, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose", ["none", "direct"])
+def test_projection_kernels_launch_once_a_step_on_card(pose):
+    """Three train steps launch the projection's forward and backward kernels once each a
+    step; with pose optimisation (w2c takes a gradient) the steps take the chain and launch
+    neither, and the pose parameters move."""
+    _require_cuda()
+    ts, args, kw = _small_train_case(pose)
+    launches = project_kernel.launches, project_backward_kernel.launches
+    for _ in range(3):
+        ts, stats = train_step(ts, *args, 1, **kw)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(stats.loss))
+    steps = 0 if pose == "direct" else 3
+    assert (project_kernel.launches, project_backward_kernel.launches) == (
+        launches[0] + steps, launches[1] + steps)
+    if pose == "direct":
+        assert float(ts.pose_params["embeddings"][1].abs().max()) > 0

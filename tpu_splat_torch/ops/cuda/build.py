@@ -51,6 +51,15 @@ class UtConsts(ctypes.Structure):
                 ("min_alpha", _F), ("max_extent", _F), ("near", _F)]
 
 
+class ProjCamera(ctypes.Structure):
+    """`struct ProjCamera` of csrc/projection.cu, passed by value: the pinhole camera's
+    scalars and the SH bands the projection evaluates."""
+
+    _fields_ = [("width", _I), ("height", _I), ("tile_size", _I), ("sh_degree", _I),
+                ("sh_rest", _I), ("fx", _F), ("fy", _F), ("cx", _F), ("cy", _F),
+                ("lo_x", _F), ("hi_x", _F), ("lo_y", _F), ("hi_y", _F)]
+
+
 # C entry point of each library: (symbol, argtypes), built from `csrc/<name>.cu` unless
 # `_SOURCE` names another source; every one returns a cudaError_t
 ENTRY_POINTS = {
@@ -69,9 +78,15 @@ ENTRY_POINTS = {
                     (_P, _P, _P, _P, _P, _I, _P, _P, _P, Camera, UtConsts,
                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)),
     "gut_rays": ("tpu_splat_gut_rays", (_P, _P, _P, Camera, _I, _I, _I, _P, _P)),
+    "projection": ("tpu_splat_project_fwd",
+                   (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, ProjCamera,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)),
+    "projection_bwd": ("tpu_splat_project_bwd",
+                       (_P, _P, _P, _P, _P, _P, _I, _P, _P, ProjCamera,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)),
 }
 # the source of an entry point whose library is not `<name>.cu`
-_SOURCE = {"gut_rays": "gut_project"}
+_SOURCE = {"gut_rays": "gut_project", "projection_bwd": "projection"}
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 # one build and load at a time: the live viewer renders from HTTP threads while the

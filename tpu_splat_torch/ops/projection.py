@@ -10,6 +10,13 @@ Constants from fastgs/rasterization/include/rasterization_config.h:11-30. Every 
 constant below is the float32 value the JAX package computes with (its Python floats
 enter float32 arithmetic as weak types), so comparisons against them are exact in
 either precision.
+
+`project` is one kernel launch forward and one backward on a CUDA device
+(`ProjectKernel`, through `cuda/projection.py`, with no host-to-device copy: the camera's
+scalars are launch arguments). `project_plain`, the chain of column ops below with
+autograd's backward, is their plain version: it runs on the CPU, under `impl="plain"`,
+where w2c or the camera position takes a gradient (pose optimisation: the kernel computes
+no camera gradient), and for an SH-4 colour (the kernel evaluates bands up to 3).
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .cuda.projection import (MAX_DEGREE, camera_args, project_backward_kernel,
+                              project_kernel, sh_bands)
 from .quat import quat_to_rotmat_cols
 from .sh import sh_to_color
 
@@ -52,7 +61,71 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+IMPLS = ("kernel", "plain")
+
+
+class ProjectKernel(torch.autograd.Function):
+    """`project` on the card: `project_kernel` forward, `project_backward_kernel`
+    backward, the camera (`cuda/build.py::ProjCamera`) fixed. Differentiable in means,
+    scaling_raw, rotation_raw, opacity_raw, sh0 and shN through mean2d, conic, opacity,
+    color, depth and power_threshold; the tile rects, counts and `visible` carry none."""
+
+    @staticmethod
+    def forward(ctx, means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive, w2c,
+                cam_position, cam):
+        out = project_kernel(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive,
+                             w2c, cam_position, cam)
+        ctx.save_for_backward(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive,
+                              w2c, cam_position)
+        ctx.cam = cam
+        ctx.mark_non_differentiable(*out[5:8], out[9])
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_conic, g_opacity, g_color, g_depth, _tile_min, _tile_max,
+                 _n_tiles, g_power_threshold, _visible):
+        grads = project_backward_kernel(*ctx.saved_tensors, ctx.cam, g_mean2d, g_conic,
+                                        g_opacity, g_color, g_depth, g_power_threshold)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)
+
+
+def takes_kernels(means, w2c, cam_position, active_sh_degree: int, sh_rest: int,
+                  impl: str) -> bool:
+    """Whether `project` runs its kernels: under `impl="kernel"` on a CUDA device, unless w2c
+    or cam_position takes a gradient (the kernels compute none for the camera) or the colour
+    has an SH band above MAX_DEGREE (`sh_rest` rest coefficients a slot)."""
+    return (impl == "kernel" and means.is_cuda
+            and not (w2c.requires_grad or cam_position.requires_grad)
+            and sh_bands(active_sh_degree, sh_rest) <= MAX_DEGREE)
+
+
 def project(
+    means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive, w2c, cam_position,
+    fx: float, fy: float, cx: float, cy: float,
+    width: int,
+    height: int,
+    active_sh_degree: int,
+    tile_size: int = 16,
+    impl: str = "kernel",  # "plain": the chain on any device
+) -> Projected:
+    """Per-Gaussian screen-space quantities of every slot (`project_plain`'s arguments).
+    One kernel launch forward and one backward on a CUDA device; the chain on the CPU,
+    under `impl="plain"`, where w2c or cam_position requires grad, and for an SH-4 colour."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if takes_kernels(means, w2c, cam_position, active_sh_degree, shN.shape[1], impl):
+        cam = camera_args(fx, fy, cx, cy, width, height, tile_size, active_sh_degree,
+                          shN.shape[1])
+        return Projected(*ProjectKernel.apply(means, scaling_raw, rotation_raw, opacity_raw,
+                                              sh0, shN, alive, w2c, cam_position, cam))
+    return project_plain(means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive, w2c,
+                         cam_position, fx, fy, cx, cy, width, height, active_sh_degree,
+                         tile_size)
+
+
+def project_plain(
     means: torch.Tensor,  # [N, 3]
     scaling_raw: torch.Tensor,  # [N, 3] log sigma
     rotation_raw: torch.Tensor,  # [N, 4] wxyz unnormalized
@@ -68,6 +141,7 @@ def project(
     active_sh_degree: int,
     tile_size: int = 16,
 ) -> Projected:
+    """Plain version of the projection: a chain of flat [N] column ops."""
     r1, r2, r3 = w2c[0], w2c[1], w2c[2]
 
     depth = means @ r3[:3] + r3[3]

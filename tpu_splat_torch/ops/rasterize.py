@@ -3,8 +3,10 @@
   project (projection.py) -> build_sorted_instances (K1, sort; cuda/raster.py)
     -> feature pack + blend_forward (K2; cuda/blend.py) -> assemble_image
 
-It is differentiable: tensors that require grad keep their graph. Projection, SH and the
-image assembly go through autograd; the tile blend is one `torch.autograd.Function`
+It is differentiable: tensors that require grad keep their graph. The projection with its
+SH colour is one `torch.autograd.Function` on the card (`projection.py::ProjectKernel`)
+and a chain under autograd elsewhere; the image assembly goes through autograd; the tile
+blend is one `torch.autograd.Function`
 (`BlendTiles`, counterpart of `blend_tiles_pallas`'s custom VJP) whose backward is
 blend_backward (K3) -> segmented_grad_reduce (K4, reading K3's tile-sorted rows through
 the emission->column index). The instance lists
@@ -12,8 +14,8 @@ the emission->column index). The instance lists
 
 There is one pipeline on every device: on a CUDA device the wrappers launch the kernels,
 on the CPU they run the kernels' plain versions. `impl="plain"` runs the plain versions
-of all four kernels on any device, forward and backward (the reference the kernels are
-held against on the card).
+of all the kernels (the projection's two, K1-K4) on any device, forward and backward (the
+reference the kernels are held against on the card).
 
 Static plan, as in the JAX package: `max_instances` (instance budget) and `k_max`
 (per-tile list capacity) bound the work; the returned `aux` counters say whether a frame
@@ -194,7 +196,7 @@ def rasterize(
     proj: Projected = project(
         means, scaling_raw, rotation_raw, opacity_raw, sh0, shN, alive,
         w2c, cam_position, fx, fy, cx, cy, width, height, active_sh_degree,
-        tile_size=tile_size,
+        tile_size=tile_size, impl=impl,
     )
     if mean2d_offset is not None:
         proj = proj._replace(mean2d=proj.mean2d + to_device(mean2d_offset, dev))

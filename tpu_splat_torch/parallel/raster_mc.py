@@ -218,7 +218,8 @@ def render_batch_mc(
         else:
             proj = project(prm["means"], prm["scaling_raw"], prm["rotation_raw"],
                            prm["opacity_raw"], prm["sh0"], prm["shN"], alive, w2c, cpos,
-                           fx, fy, cx, cy, width, height, sh_deg, tile_size=ts)
+                           fx, fy, cx, cy, width, height, sh_deg, tile_size=ts,
+                           impl=impl)
             if mean2d_offset is not None:
                 proj = proj._replace(mean2d=proj.mean2d + mean2d_offset[b])
         # full-image visibility of the shard's rows: ADC's signal, as RasterAux.visible
