@@ -1075,12 +1075,13 @@ def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> di
     mean2d, conic, opacity, color, depth) also the backward, one launch: each of the six
     gradients within 1e-4 of its largest absolute value of the chain's autograd gradient
     (K3's convention), finite wherever the chain's is, zero where the chain's is on the
-    dead slots (whose cotangents are zero), the coefficients of bands above `degree` exactly
-    zero, and no further from the chain run in float64 than twice the float32 chain is,
+    dead slots (whose cotangents are zero), the coefficients of bands the chain leaves out
+    (above `degree`, or not all held by shN) exactly zero, and no further from the chain run in float64 than twice the float32 chain is,
     plus 1e-6 of the largest. -> the gaps"""
     import torch
 
-    from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
+    from tpu_splat_torch.ops.cuda.projection import (project_backward_kernel, project_kernel,
+                                                      sh_bands)
     from tpu_splat_torch.ops.projection import Projected, project
 
     w2c, cam_position, fx, fy, cx, cy, width, height, tile = cam
@@ -1120,10 +1121,12 @@ def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> di
     g_c = projection_grads(slots, cam, degree, "plain", cotangents)
     g_d = projection_grads(slots, cam, degree, "plain", cotangents, torch.float64)
     dead = ~slots[6]
-    rest = (0, 3, 8, 15)[degree]
+    rest = (0, 3, 8, 15)[sh_bands(degree, slots[5].shape[1])]
     gaps["grads"] = {}
     for name, k, c, d in zip(("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0",
                                "shN"), g_k, g_c, g_d):
+        if c.numel() == 0:  # shN of a state without SH bands
+            continue
         fin = torch.isfinite(c)
         require(bool(torch.isfinite(k)[fin].all()), f"{label}: {name}: a non-finite gradient "
                 "where the chain's is finite")

@@ -939,7 +939,7 @@ def test_gut_projection_kernels_do_not_synchronise_on_card():
 _PROJ_W, _PROJ_H, _PROJ_TILE = 320, 200, 16
 
 
-def _projection_case(dev, n=1 << 17, seed=4):
+def _projection_case(dev, n=1 << 17, seed=4, rest=15):
     """2^17 slots with SH 3 coefficients seen through a rotated pinhole camera, built in
     camera space. In groups of n // 16: behind the camera; on the near plane (the rounding
     of the camera transform puts them on both sides); on the image's edges and on tile boundaries; opacities within 64 ulps of 1/255;
@@ -947,7 +947,8 @@ def _projection_case(dev, n=1 << 17, seed=4):
     unit from the camera, diagonal in the image, whose 2D covariance is rank one up to
     rounding, so that its determinant (with the dilation, at least 0.09 in exact
     arithmetic) is rounding noise about the 1e-8 cull; the rest inside a frustum 20% wider
-    than the image; a tenth of all slots dead. -> (slots on `dev`, camera)"""
+    than the image; a tenth of all slots dead; `rest` SH coefficients a slot in shN.
+    -> (slots on `dev`, camera, the groups' slices)"""
     gen = torch.Generator().manual_seed(seed)
     w, h = _PROJ_W, _PROJ_H
     fx, fy, cx, cy = 0.8 * w, 0.85 * w, w / 2 + 3.0, h / 2 - 2.0
@@ -985,7 +986,7 @@ def _projection_case(dev, n=1 << 17, seed=4):
     alive = rand(n) > 0.1
     alive[needle] = True
     sh0 = torch.randn((n, 1, 3), generator=gen) * 0.5
-    shN = torch.randn((n, 15, 3), generator=gen) * 0.1
+    shN = torch.randn((n, rest, 3), generator=gen) * 0.1
     slots = [x.to(dev) for x in (means, scaling, rotation, opacity, sh0, shN, alive)]
     w2c = w2c.to(dev)
     cam_position = -w2c[:3, :3].T @ w2c[:3, 3]
@@ -1021,6 +1022,21 @@ def test_projection_kernels_match_chain_on_card(degree):
         assert 0 < int(vis.sum()) < vis.numel(), (name, int(vis.sum()), vis.numel())
     assert not bool(proj.visible[groups[0]].any())
     print(f"PROJECTION_GAPS SH {degree} {gaps}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rest", [0, 8, 24])
+def test_projection_kernels_match_chain_for_other_sh_layouts_on_card(rest):
+    """As `test_projection_kernels_match_chain_on_card` at active degree 3 on a state whose
+    shN holds no band (SH 0), bands 1-2 only (the chain evaluates up to 2) or bands 1-4
+    (24 coefficients a slot, the widest shared-memory rows): bit-equal forward, the
+    backward's gradients, band 3's or band 4's coefficients exactly zero."""
+    _require_cuda()
+    dev = torch.device("cuda")
+    slots, cam, _ = _projection_case(dev, n=1 << 16, rest=rest)
+    cot = projection_cotangents(slots[0].shape[0], slots[6], dev)
+    gaps = check_projection(slots, cam, 3, f"shN of {rest}", cot)
+    print(f"PROJECTION_GAPS rest {rest} {gaps}")
 
 
 @pytest.mark.cuda
