@@ -1076,13 +1076,15 @@ def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> di
     gradients within 1e-4 of its largest absolute value of the chain's autograd gradient
     (K3's convention), finite wherever the chain's is, zero where the chain's is on the
     dead slots (whose cotangents are zero), the coefficients of bands the chain leaves out
-    (above `degree`, or not all held by shN) exactly zero, and no further from the chain run in float64 than twice the float32 chain is,
-    plus 1e-6 of the largest. -> the gaps"""
+    (above `degree`, or not all held by shN) exactly zero, and no further from the chain run
+    in float64 than twice the float32 chain is, plus 1e-6 of the largest. Each leaf's gaps
+    come with its largest and its median absolute gradient (`scale`, `median`), so that a
+    reader sees how far the tolerance lies from a typical gradient. -> the gaps"""
     import torch
 
-    from tpu_splat_torch.ops.cuda.projection import (project_backward_kernel, project_kernel,
-                                                      sh_bands)
+    from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
     from tpu_splat_torch.ops.projection import Projected, project
+    from tpu_splat_torch.ops.sh import SH_BAND_COEFFS, sh_bands
 
     w2c, cam_position, fx, fy, cx, cy, width, height, tile = cam
     args = (*slots, w2c, cam_position, fx, fy, cx, cy, width, height, degree)
@@ -1121,7 +1123,7 @@ def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> di
     g_c = projection_grads(slots, cam, degree, "plain", cotangents)
     g_d = projection_grads(slots, cam, degree, "plain", cotangents, torch.float64)
     dead = ~slots[6]
-    rest = (0, 3, 8, 15)[sh_bands(degree, slots[5].shape[1])]
+    rest = (0, *SH_BAND_COEFFS)[sh_bands(degree, slots[5].shape[1])]
     gaps["grads"] = {}
     for name, k, c, d in zip(("means", "scaling_raw", "rotation_raw", "opacity_raw", "sh0",
                                "shN"), g_k, g_c, g_d):
@@ -1140,10 +1142,35 @@ def check_projection(slots, cam, degree: int, label: str, cotangents=None) -> di
         require(e_k <= 2.0 * e_c + 1e-6 * scale,
                 (f"{label}: {name} gradient further from the float64 chain than the "
                  "float32 chain", e_k, e_c))
-        gaps["grads"][name] = dict(max_abs=gap, scale=scale, f64_kernel=e_k, f64_chain=e_c)
+        gaps["grads"][name] = dict(max_abs=gap, scale=scale,
+                                   median=float(c[fin].abs().median()), f64_kernel=e_k,
+                                   f64_chain=e_c)
     require(not bool(g_k[5][:, rest:].any()),
             f"{label}: a coefficient above SH degree {degree} has a gradient")
     return gaps
+
+
+def host_ms(fn, reps: int = 200, traced: bool = False) -> dict:
+    """The host's time of each of `reps` calls of fn() after 5 warm-up calls, the card not
+    waited for between calls; with `traced` under torch.profiler over host and card, as the
+    benchmark's traced runs take it. -> the median, the 90th percentile and the largest in
+    ms, and the calls over 1 ms"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return dict(median=statistics.median(times), p90=statistics.quantiles(times, n=10)[8],
+                max=max(times), over_1ms=sum(t > 1.0 for t in times))
 
 
 def projection_phase(sp, focal: float, dev) -> dict:
@@ -1151,14 +1178,19 @@ def projection_phase(sp, focal: float, dev) -> dict:
     against the plain chain (`check_projection`) on the state's slots (the dead ones among
     them) at WIDTH x HEIGHT, tile 16 (the cell's plan), from a camera turned 0.1 rad and
     set 3 units into the scene, so that a tenth of it lies behind: the forward bit-equal at
-    SH 0-3, the backward at SH 3. Times both kernels (`queued_ms`: the card's time;
-    `cuda_ms`: with the launch's host cost), their byte bounds, the chain's forward and
-    its forward and backward under autograd (`cuda_ms`), and the same through the kernels.
-    -> the phase's numbers"""
+    SH 0-3, the backward at SH 3 with cotangents on every live slot, and again on the
+    ordinary slots alone (depth at least 1, far off the 0.01 near plane, whose slots' ~1e11
+    gradients would set the tolerance otherwise; `bwd_max_gap` is that pass's), and both at
+    SH 4 on the same slots with band 4's nine coefficients added. Times both kernels
+    (`queued_ms`: the card's time; `cuda_ms`: with the launch's host cost), at SH 3 and 4,
+    their byte bounds, the chain's forward and its forward and backward under autograd
+    (`cuda_ms`), and the same through the kernels; and the host's time of a `project` call
+    (`host`: forward alone and forward with backward, untraced and traced, and the
+    wrapper's parts). -> the phase's numbers"""
     import torch
 
-    from tpu_splat_torch.ops.cuda.projection import (camera_args, project_backward_kernel,
-                                                      project_kernel)
+    from tpu_splat_torch.ops.cuda.projection import (_inputs, camera_args,
+                                                      project_backward_kernel, project_kernel)
     from tpu_splat_torch.ops.projection import project
 
     c, s_ = math.cos(0.1), math.sin(0.1)
@@ -1171,27 +1203,40 @@ def projection_phase(sp, focal: float, dev) -> dict:
              sp.alive)
     n = int(sp.means.shape[0])
     cot = projection_cotangents(n, sp.alive, dev)
-    out = dict(slots=n, dead=int((~sp.alive).sum()), width=WIDTH, height=HEIGHT, tile=tile,
-               degrees={})
+    depth = sp.means @ w2c[2, :3] + w2c[2, 3]
+    ordinary = sp.alive & (depth >= 1.0)
+    cot_ord = [g * ordinary.view(-1, *[1] * (g.dim() - 1)) for g in cot]
+    out = dict(slots=n, dead=int((~sp.alive).sum()), ordinary=int(ordinary.sum()),
+               width=WIDTH, height=HEIGHT, tile=tile, degrees={})
     for degree in (0, 1, 2, 3):
         out["degrees"][degree] = check_projection(
             slots, cam, degree, f"projection SH {degree}", cot if degree == 3 else None)
-    kcam = camera_args(focal, focal, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, tile, 3,
-                       sp.shN.shape[1])
-    kargs = (*slots, w2c, cam_position, kcam)
+    out["degrees"]["3 ordinary"] = check_projection(slots, cam, 3, "projection SH 3 ordinary",
+                                                    cot_ord)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shN4 = torch.cat([sp.shN, 0.05 * torch.randn((n, 9, 3), device=dev, generator=gen)], 1)
+    slots4 = (*slots[:5], shN4, slots[6])
+    out["degrees"][4] = check_projection(slots4, cam, 4, "projection SH 4", cot)
+    out["degrees"]["4 ordinary"] = check_projection(slots4, cam, 4,
+                                                    "projection SH 4 ordinary", cot_ord)
 
-    def fwd():
-        return project_kernel(*kargs)
+    def kernel_args(sl, degree):
+        return (*sl, w2c, cam_position, camera_args(
+            focal, focal, WIDTH / 2.0, HEIGHT / 2.0, WIDTH, HEIGHT, tile, degree,
+            sl[5].shape[1]))
 
-    def bwd():
-        return project_backward_kernel(*kargs, *cot)
+    kargs, kargs4 = kernel_args(slots, 3), kernel_args(slots4, 4)
 
     def through(impl):
         return lambda: projection_grads(slots, cam, 3, impl, cot)
 
     out.update(
-        fwd_ms=queued_ms(fwd, 20), fwd_ms_with_launch=cuda_ms(fwd, 20),
-        bwd_ms=queued_ms(bwd, 20), bwd_ms_with_launch=cuda_ms(bwd, 20),
+        fwd_ms=queued_ms(lambda: project_kernel(*kargs), 20),
+        fwd_ms_with_launch=cuda_ms(lambda: project_kernel(*kargs), 20),
+        bwd_ms=queued_ms(lambda: project_backward_kernel(*kargs, *cot), 20),
+        bwd_ms_with_launch=cuda_ms(lambda: project_backward_kernel(*kargs, *cot), 20),
+        fwd_ms_sh4=queued_ms(lambda: project_kernel(*kargs4), 20),
+        bwd_ms_sh4=queued_ms(lambda: project_backward_kernel(*kargs4, *cot), 20),
         chain_fwd_ms=cuda_ms(lambda: project(*slots, *cam[:8], 3, tile_size=tile,
                                              impl="plain"), 5, warmup=1),
         chain_fwd_bwd_ms=cuda_ms(through("plain"), 5, warmup=1),
@@ -1199,8 +1244,29 @@ def projection_phase(sp, focal: float, dev) -> dict:
         fwd_bytes=PROJECT_FWD_BYTES_PER_SLOT * n, bwd_bytes=PROJECT_BWD_BYTES_PER_SLOT * n)
     out["fwd_bound_ms"] = bound_ms(out["fwd_bytes"], 0)[0]
     out["bwd_bound_ms"] = bound_ms(out["bwd_bytes"], 0)[0]
-    out["bwd_max_gap"] = max(v["max_abs"] / v["scale"]
-                             for v in out["degrees"][3]["grads"].values())
+    out["bwd_max_gap"] = max(v["max_abs"] / v["scale"] for degree in ("3 ordinary", "4 ordinary")
+                             for v in out["degrees"][degree]["grads"].values())
+    out["bwd_max_gap_all_slots"] = max(v["max_abs"] / v["scale"] for degree in (3, 4)
+                                       for v in out["degrees"][degree]["grads"].values())
+
+    # the host's cost of a call: the frame's forward, and the train step's forward with its
+    # backward (the leaves requiring grad), as the step makes them; then the wrapper's parts
+    leaves = [x.detach().requires_grad_(True) for x in slots[:6]]
+
+    def forward():
+        with torch.no_grad():
+            return project(*slots, *cam[:8], 3, tile_size=tile)
+
+    def step():
+        pr = project(*leaves, slots[6], *cam[:8], 3, tile_size=tile)
+        torch.autograd.backward((pr.mean2d, pr.conic, pr.opacity, pr.color, pr.depth), cot)
+
+    out["host"] = dict(
+        forward=host_ms(forward), forward_traced=host_ms(forward, traced=True),
+        forward_backward=host_ms(step), forward_backward_traced=host_ms(step, traced=True),
+        inputs=host_ms(lambda: _inputs(*slots, w2c, cam_position)),
+        camera_args=host_ms(lambda: kernel_args(slots, 3)),
+        project_kernel=host_ms(lambda: project_kernel(*kargs)))
     torch.cuda.synchronize()
     return out
 
@@ -2657,8 +2723,8 @@ def sog_phase(params, path: Path, dev) -> dict:
 
 def serving_frames(state, sh4_state, focal, dev, counted) -> dict:
     """A point-cloud frame of `state` and an SH-degree-4 frame of `sh4_state` through
-    `render_view`, each through the kernels (K1 and K2 launched once) against the plain
-    versions (image and alpha atol 1e-4, the frame gate)."""
+    `render_view`, each through the kernels (K1, K2 and the projection's forward launched
+    once) against the plain versions (image and alpha atol 1e-4, the frame gate)."""
     import torch
 
     from tpu_splat_torch.render import render_view
@@ -2676,8 +2742,9 @@ def serving_frames(state, sh4_state, focal, dev, counted) -> dict:
         want = render_view(st, w2c, WIDTH, HEIGHT, fov, device=dev, impl="plain", **kw)
         torch.cuda.synchronize()
         img_err, alpha_err = max_err(got.image, want.image), max_err(got.alpha, want.alpha)
-        require(launches["expand_emission"] == 1 and launches["blend_forward"] == 1,
-                (label, launches))
+        require(all(launches[k] == 1 for k in ("expand_emission", "blend_forward",
+                                               "project_kernel"))
+                and launches["project_backward_kernel"] == 0, (label, launches))
         require(bool(torch.isfinite(got.image).all()) and img_err <= 1e-4
                 and alpha_err <= 1e-4, (label, img_err, alpha_err))
         out[label] = dict(image_err=img_err, alpha_err=alpha_err, launches=launches,
@@ -2688,8 +2755,8 @@ def serving_frames(state, sh4_state, focal, dev, counted) -> dict:
 def sh4_train_steps(params4, focal, dev, counted) -> dict:
     """SH4_STEPS `train_step`s of the scene with 24 rest coefficients at active degree 4
     (`sh_degree_interval` 1, from the iteration after shN's 1000-iteration freeze, so that
-    Adam moves shN): K1-K4 once a step, finite state, the loss finite, and band 4's
-    coefficients moved."""
+    Adam moves shN): K1-K4 and the projection's forward and backward kernels once a step,
+    finite state, the loss finite, and band 4's coefficients moved."""
     import torch
 
     from tpu_splat_torch.training.optim import SHN_WARMUP_ITERS
@@ -2708,9 +2775,11 @@ def sh4_train_steps(params4, focal, dev, counted) -> dict:
         losses.append(float(st.loss))
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
-    require(all(launches[fn.__name__] == (SH4_STEPS if fn in counted[:4] else 0)
+    once = ("expand_emission", "blend_forward", "blend_backward", "segsum_emission",
+            "project_kernel", "project_backward_kernel")
+    require(all(launches[fn.__name__] == (SH4_STEPS if fn.__name__ in once else 0)
                 for fn in counted),
-            f"SH 4 steps: K1-K4 once a step, the projection through its chain: {launches}")
+            f"SH 4 steps: K1-K4 and the projection's two kernels once a step: {launches}")
     require(all(math.isfinite(v) for v in losses), "non-finite SH 4 loss")
     for k, v in ts.splat.params().items():
         require(bool(torch.isfinite(v).all()), f"non-finite {k} after SH 4 steps")

@@ -37,12 +37,12 @@ sequence (gemv2N, checked) at 2^16 slots and more, so the scenes hold 2^17 slots
 (csrc/gut_project.cu), and the kernel is also held against the chain in float64, no
 further from it than twice the float32 chain; neither kernel path synchronises;
 the pinhole projection's kernels (`project`) against its plain chain: the forward bit-equal
-(NaN where NaN) at SH 0-3 on 2^17 slots (the chain's `means @ w2c` through cuBLAS's gemvx,
+(NaN where NaN) at SH 0-4 on 2^17 slots (the chain's `means @ w2c` through cuBLAS's gemvx,
 checked, whose order the kernel repeats), the backward's six gradients within 1e-4 of each
 leaf's largest (K3's convention), finite where the chain's are, zero on dead slots and above
 the active degree, and no further from the chain in float64 than twice the float32 chain;
-neither projection kernel synchronises; each launches once a train step, and a step with
-pose optimisation takes the chain.
+neither projection kernel synchronises; each launches once a train step, at SH 3 and at SH 4,
+and a step with pose optimisation takes the chain.
 """
 
 import dataclasses
@@ -994,10 +994,11 @@ def _projection_case(dev, n=1 << 17, seed=4, rest=15):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
 def test_projection_kernels_match_chain_on_card(degree):
     """`project` through its two kernels against its plain chain on the card
-    (`chip_smoke.check_projection`) at SH `degree`: every field bit-equal, the backward's six
+    (`chip_smoke.check_projection`) at SH `degree` (SH 4 on 24 coefficients a slot, the rest
+    on 15): every field bit-equal, the backward's six
     gradients within 1e-4 of each leaf's largest and as close to the float64 chain as the
     float32 chain (twice its distance), zero on dead slots and above the degree, over all
     slots and again with cotangents on the ordinary slots alone. The
@@ -1005,7 +1006,7 @@ def test_projection_kernels_match_chain_on_card(degree):
     their culls, and needles culled by their determinant as well as kept. Prints the gaps."""
     _require_cuda()
     dev = torch.device("cuda")
-    slots, cam, groups = _projection_case(dev)
+    slots, cam, groups = _projection_case(dev, rest=24 if degree == 4 else 15)
     cot = projection_cotangents(slots[0].shape[0], slots[6], dev)
     gaps = check_projection(slots, cam, degree, f"SH {degree}", cot)
     # the same with cotangents on the ordinary slots alone, whose largest gradients are
@@ -1065,22 +1066,23 @@ def test_projection_kernels_do_not_synchronise_on_card():
         launches[0] + 2, launches[1] + 2)
 
 
-def _small_train_case(pose: str = "none"):
+def _small_train_case(pose: str = "none", sh_degree: int = 3):
     """A 3000-Gaussian scene in 4096 slots at 128x128 and a fresh state (with `pose`
-    optimisation) and the step's arguments, as `test_train_step_through_kernels_...`'s."""
+    optimisation; SH up to `sh_degree`) and the step's arguments, as
+    `test_train_step_through_kernels_...`'s."""
     rng = np.random.default_rng(0)
     n, cap, size = 3000, 4096, 128
     pts = rng.normal(0, 0.8, (n, 3)).astype(np.float32)
     pts[:, 2] += 5
     params = dict(
         means=pts, sh0=rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
-        shN=rng.normal(0, 0.05, (n, 15, 3)).astype(np.float32),
+        shN=rng.normal(0, 0.05, (n, (sh_degree + 1) ** 2 - 1, 3)).astype(np.float32),
         scaling_raw=np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(np.float32),
         rotation_raw=rng.normal(0, 1, (n, 4)).astype(np.float32),
         opacity_raw=rng.normal(0, 1, (n, 1)).astype(np.float32))
     pad = lambda x: np.concatenate([x, np.ones((cap - n,) + x.shape[1:], np.float32)])
-    splat = splat_from_numpy({k: pad(v) for k, v in params.items()}, np.arange(cap) < n, 3,
-                             "cuda")
+    splat = splat_from_numpy({k: pad(v) for k, v in params.items()}, np.arange(cap) < n,
+                             sh_degree, "cuda")
     f = 0.5 * size / np.tan(np.radians(30.0))
     args = (rng.random((3, size, size)).astype(np.float32), np.eye(4, dtype=np.float32),
             np.zeros(3, np.float32), f, f, size / 2, size / 2, np.zeros(3, np.float32))
@@ -1111,3 +1113,21 @@ def test_projection_kernels_launch_once_a_step_on_card(pose):
         launches[0] + steps, launches[1] + steps)
     if pose == "direct":
         assert float(ts.pose_params["embeddings"][1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_projection_kernels_launch_once_a_step_at_sh4_on_card():
+    """Three train steps of a state with 24 rest coefficients at active degree 4 launch the
+    projection's forward and backward kernels once each a step (band 4 takes the kernels,
+    not the chain), and the loss stays finite."""
+    _require_cuda()
+    ts, args, kw = _small_train_case(sh_degree=4)
+    kw["opt"] = dataclasses.replace(kw["opt"], sh_degree_interval=1)
+    ts = dataclasses.replace(ts, iteration=4)
+    launches = project_kernel.launches, project_backward_kernel.launches
+    for _ in range(3):
+        ts, stats = train_step(ts, *args, 1, **kw)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(stats.loss))
+    assert (project_kernel.launches, project_backward_kernel.launches) == (
+        launches[0] + 3, launches[1] + 3)

@@ -1,7 +1,7 @@
 """The pinhole projection's dispatch on the CPU (no JAX): `ops/projection.py::project` runs
 its plain chain on CPU tensors, by default and under `impl="plain"`, bit for bit the same
 forward and backward, and launches no kernel; the kernels are taken only on a CUDA device,
-without a camera gradient and up to SH degree 3. The kernels' launch arguments
+without a camera gradient, at every SH degree up to 4. The kernels' launch arguments
 (`ops/cuda/projection.py::camera_args`) carry the float32 values the chain computes with,
 the wrappers check their arguments before any launch, the source's constants are the
 chain's, and `ProjectKernel` (the autograd function around the kernels) passes values and
@@ -22,8 +22,8 @@ import torch
 from tpu_splat_torch.ops import projection, sh
 from tpu_splat_torch.ops.cuda import build
 from tpu_splat_torch.ops.cuda.projection import (_cotangent, camera_args,
-                                                 project_backward_kernel, project_kernel,
-                                                 sh_bands)
+                                                 project_backward_kernel, project_kernel)
+from tpu_splat_torch.ops.sh import sh_bands, sh_to_color
 
 W, H, TILE = 40, 30, 8
 FX, FY, CX, CY = 30.0, 33.0, W / 2 + 1.0, H / 2 - 1.0
@@ -92,12 +92,13 @@ def _fake(is_cuda=True, requires_grad=False):
 
 @pytest.mark.parametrize("case,kernels", [
     ("card", True), ("cpu", False), ("plain", False), ("pose", False), ("cam_position", False),
-    ("sh4", False), ("sh4-inactive", True), ("sh3-short", True),
+    ("sh4", True), ("sh4-inactive", True), ("sh3-short", True),
 ])
 def test_the_kernels_run_on_the_card_without_a_camera_gradient_up_to_sh3(case, kernels):
-    """The route: a CUDA device under `impl="kernel"`; not on the CPU, under
-    `impl="plain"`, where w2c or cam_position requires grad (pose optimisation) or where
-    band 4 counts; an SH-4 state at a lower active degree takes the kernels."""
+    """The route: a CUDA device under `impl="kernel"`, whatever the SH bands (up to 4);
+    not on the CPU, under `impl="plain"` or where w2c or cam_position requires grad (pose
+    optimisation). The kernels evaluate the bands the chain does: an SH-4 state at active
+    degree 4 all four, at degree 3 three, a state holding bands up to 2 two."""
     means, w2c, cpos = _fake(), _fake(), _fake()
     degree, rest, impl = 3, 15, "kernel"
     if case == "cpu":
@@ -114,7 +115,9 @@ def test_the_kernels_run_on_the_card_without_a_camera_gradient_up_to_sh3(case, k
         degree, rest = 3, 24
     elif case == "sh3-short":  # shN holds bands up to 2 only
         degree, rest = 3, 8
-    assert projection.takes_kernels(means, w2c, cpos, degree, rest, impl) is kernels
+    assert projection.takes_kernels(means, w2c, cpos, impl) is kernels
+    bands = camera_args(FX, FY, CX, CY, W, H, TILE, degree, rest).sh_degree
+    assert bands == {"sh4": 4, "sh3-short": 2}.get(case, 3) == sh_bands(degree, rest)
 
 
 def test_sh_bands_are_the_chains():
@@ -122,6 +125,14 @@ def test_sh_bands_are_the_chains():
     assert [sh_bands(d, 15) for d in range(5)] == [0, 1, 2, 3, 3]
     assert [sh_bands(3, r) for r in (0, 2, 3, 7, 8, 14, 15, 24)] == [0, 0, 1, 1, 2, 2, 3, 3]
     assert sh_bands(4, 24) == 4 and sh_bands(4, 23) == 3
+    # sh_to_color adds those bands and no other: a fifth band's coefficients held short of
+    # 24 change nothing, nor does an active degree above the bands shN holds
+    leaves, _ = _scene(n=64, rest=23)
+    dirs = leaves[0] - torch.tensor([0.1, -0.2, 0.3])
+    sh0, shN = leaves[4], leaves[5]
+    assert torch.equal(sh_to_color(sh0, shN, dirs, 4), sh_to_color(sh0, shN, dirs, 3))
+    assert torch.equal(sh_to_color(sh0, shN[:, :8], dirs, 3), sh_to_color(sh0, shN, dirs, 2))
+    assert not torch.equal(sh_to_color(sh0, shN, dirs, 3), sh_to_color(sh0, shN, dirs, 2))
 
 
 def test_camera_args_carry_the_chains_float32_scalars():
@@ -136,8 +147,8 @@ def test_camera_args_carry_the_chains_float32_scalars():
     assert (cam.width, cam.height, cam.tile_size, cam.sh_degree, cam.sh_rest) == (
         1296, 840, 16, 2, 15)
     assert ctypes.sizeof(cam) == 13 * 4
-    with pytest.raises(ValueError, match="degree 3"):
-        camera_args(1.0, 1.0, 0.0, 0.0, 8, 8, 16, 4, 24)
+    sh4 = camera_args(1.0, 1.0, 0.0, 0.0, 8, 8, 16, 4, 24)
+    assert (sh4.sh_degree, sh4.sh_rest) == (4, 24)
 
 
 def test_wrappers_check_their_arguments_before_launching():
@@ -171,9 +182,18 @@ def test_the_projection_entry_points_share_one_source():
 
 
 def test_the_kernels_constants_are_the_chains():
-    """Each SH constant of `csrc/projection.cu` is the float32 value of sh.py's, and the
+    """Each SH constant of `csrc/projection.cu` is the float32 value of sh.py's (band 4's
+    written as the same decimal, which both round from a double to float32 once), and the
     culls' thresholds are projection.py's."""
     src = (build.SRC_DIR / "projection.cu").read_text()
+    sh_src = (build.SRC_DIR.parent / "ops" / "sh.py").read_text()
+    band4 = re.findall(r"constexpr float (kC4_\w+) = ([-0-9.e]+);", src)
+    assert len(band4) == 12
+    for name, v in band4:
+        assert re.search(rf"(?<![0-9.]){re.escape(v.lstrip('-'))}(?![0-9])", sh_src), name
+    assert {v for _, v in band4 if v.startswith("-")} == {"-4.683325804901025",
+                                                         "-1.770130769779931"}
+    assert "-4.683325804901025 * zz" in sh_src and "-1.770130769779931 * z" in sh_src
     consts = {k: np.float32(float(v)) for k, v in
               re.findall(r"constexpr float (k\w+) = ([-0-9.e]+)f;", src)}
     want = {"kC0": sh.SH_C0, "kC1": sh.SH_C1, "kC2_0": sh.SH_C2[0], "kC2_1": sh.SH_C2[1],
@@ -185,7 +205,7 @@ def test_the_kernels_constants_are_the_chains():
     assert {k: consts[k] for k in want} == {k: np.float32(v) for k, v in want.items()}
     assert "constexpr float kMinAlpha = 1.0f / 255.0f;" in src
     assert np.float32(1.0) / np.float32(255.0) == np.float32(projection.MIN_ALPHA)
-    assert "0.94617469575755997 * zz" in (build.SRC_DIR.parent / "ops" / "sh.py").read_text()
+    assert "0.94617469575755997 * zz" in sh_src
 
 
 def _stand_ins(monkeypatch, degree):

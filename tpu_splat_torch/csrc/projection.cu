@@ -10,7 +10,7 @@
 // opacity, the rotation from the quaternion (|q|^2 folded in), the variances, the
 // normalised camera-plane point, the clamped Jacobian, JW, the 2D covariance in flat
 // column form with the 0.3 dilation, its conic, the opacity-aware extent and the clamped
-// tile rect, then the SH colour up to the active degree (<= 3). Writes every field of
+// tile rect, then the SH colour up to the active degree (<= 4). Writes every field of
 // `Projected` in one pass.
 //
 // tpu_splat_project_bwd: one thread per slot. Recomputes the forward's intermediates from
@@ -69,13 +69,27 @@ constexpr float kC3_1 = 2.8906114426405538f;
 constexpr float kC3_2 = 0.45704579946446572f;
 constexpr float kC3_3 = 0.3731763325901154f;
 constexpr float kC3_4 = 1.4453057213202769f;
+// band 4's (Sloan's basis), written as sh.py writes them: the chain rounds each Python float
+// to float32 once, as this double-to-float conversion does
+constexpr float kC4_fc = 0.6258357354491763;
+constexpr float kC4_0d_zz = -4.683325804901025;
+constexpr float kC4_0d = 2.007139630671868;
+constexpr float kC4_1c_zz = 3.31161143515146;
+constexpr float kC4_1c = 0.47308734787878;
+constexpr float kC4_2b = -1.770130769779931;
+constexpr float kC4_6_zz = 0.9461746957575601;
+constexpr float kC4_6 = 0.3153915652525201;
+constexpr float kC4_12_zz = 1.865881662950577;
+constexpr float kC4_12 = 1.119528997770346;
+constexpr float kC4_19z = 1.984313483298443;
+constexpr float kC4_19 = 1.006230589874905;
 
 }  // namespace
 
 // Launch arguments. Mirrored by `tpu_splat_torch/ops/cuda/build.py::ProjCamera`.
 struct ProjCamera {
   int width, height, tile_size;
-  int sh_degree;                 // bands evaluated, 0-3 (the active degree shN holds)
+  int sh_degree;                 // bands evaluated, 0-4 (the active degree shN holds)
   int sh_rest;                   // coefficients a slot in shN (K - 1)
   float fx, fy, cx, cy;          // float32 of the host values
   float lo_x, hi_x, lo_y, hi_y;  // the clamp of the normalised x and y, as the chain's
@@ -272,9 +286,69 @@ __device__ __forceinline__ void sh_basis_grad(const Dir& d, float db[15][3]) {
   db[14][2] = 0.0f;
 }
 
+// Band 4's factors of the rest coefficients 15-23, as the chain computes them
+// (sh.py::sh_to_color: Sloan's basis through the cos/sin recurrences fc and fs).
+struct Band4 {
+  float fc1, fs1, fc2, fs2, fc3, fs3, tmp0d, tmp1c, tmp2b, psh6, psh12;
+};
+
+__device__ __forceinline__ void band4_terms(const Dir& d, Band4& t) {
+  const float x = d.x, y = d.y, z = d.z;
+  const float xx = x * x, yy = y * y, zz = z * z, xy = x * y;
+  t.fc1 = xx - yy;
+  t.fs1 = 2.0f * xy;
+  t.fc2 = x * t.fc1 - y * t.fs1;
+  t.fs2 = x * t.fs1 + y * t.fc1;
+  t.fc3 = x * t.fc2 - y * t.fs2;
+  t.fs3 = x * t.fs2 + y * t.fc2;
+  t.tmp0d = z * (kC4_0d_zz * zz + kC4_0d);
+  t.tmp1c = kC4_1c_zz * zz - kC4_1c;
+  t.tmp2b = kC4_2b * z;
+  t.psh6 = kC4_6_zz * zz - kC4_6;
+  t.psh12 = z * (kC4_12_zz * zz - kC4_12);
+}
+
+__device__ __forceinline__ void sh_basis4(const Dir& d, float b[9]) {
+  Band4 t;
+  band4_terms(d, t);
+  b[0] = kC4_fc * t.fs3;
+  b[1] = t.tmp2b * t.fs2;
+  b[2] = t.tmp1c * t.fs1;
+  b[3] = t.tmp0d * d.y;
+  b[4] = (kC4_19z * d.z) * t.psh12 - kC4_19 * t.psh6;
+  b[5] = t.tmp0d * d.x;
+  b[6] = t.tmp1c * t.fc1;
+  b[7] = t.tmp2b * t.fc2;
+  b[8] = kC4_fc * t.fc3;
+}
+
+// d b / d (x, y, z) of band 4's factors: fc_k + i fs_k = (x + i y)^(k + 1), so
+// d fc_k / dx = (k + 1) fc_(k-1), d fc_k / dy = -(k + 1) fs_(k-1), d fs_k / dx = (k + 1)
+// fs_(k-1), d fs_k / dy = (k + 1) fc_(k-1), with fc_0 = x, fs_0 = y
+__device__ __forceinline__ void sh_basis4_grad(const Dir& d, float db[9][3]) {
+  Band4 t;
+  band4_terms(d, t);
+  const float x = d.x, y = d.y, z = d.z, zz = z * z;
+  const float d0d = 3.0f * kC4_0d_zz * zz + kC4_0d;   // d tmp0d / dz
+  const float d1c = 2.0f * kC4_1c_zz * z;             // d tmp1c / dz
+  const float d12 = 3.0f * kC4_12_zz * zz - kC4_12;   // d psh12 / dz
+  db[0][0] = 4.0f * kC4_fc * t.fs2; db[0][1] = 4.0f * kC4_fc * t.fc2; db[0][2] = 0.0f;
+  db[1][0] = 3.0f * t.tmp2b * t.fs1; db[1][1] = 3.0f * t.tmp2b * t.fc1;
+  db[1][2] = kC4_2b * t.fs2;
+  db[2][0] = 2.0f * t.tmp1c * y; db[2][1] = 2.0f * t.tmp1c * x; db[2][2] = d1c * t.fs1;
+  db[3][0] = 0.0f; db[3][1] = t.tmp0d; db[3][2] = d0d * y;
+  db[4][0] = 0.0f; db[4][1] = 0.0f;
+  db[4][2] = kC4_19z * (t.psh12 + z * d12) - kC4_19 * (2.0f * kC4_6_zz * z);
+  db[5][0] = t.tmp0d; db[5][1] = 0.0f; db[5][2] = d0d * x;
+  db[6][0] = 2.0f * t.tmp1c * x; db[6][1] = -2.0f * t.tmp1c * y; db[6][2] = d1c * t.fc1;
+  db[7][0] = 3.0f * t.tmp2b * t.fc1; db[7][1] = -3.0f * t.tmp2b * t.fs1;
+  db[7][2] = kC4_2b * t.fc2;
+  db[8][0] = 4.0f * kC4_fc * t.fc2; db[8][1] = -4.0f * kC4_fc * t.fs2; db[8][2] = 0.0f;
+}
+
 // rest coefficients of the bands up to `deg`
 __host__ __device__ __forceinline__ int sh_coeffs(int deg) {
-  return deg >= 3 ? 15 : deg == 2 ? 8 : deg == 1 ? 3 : 0;
+  return deg >= 4 ? 24 : deg == 3 ? 15 : deg == 2 ? 8 : deg == 1 ? 3 : 0;
 }
 
 __global__ void __launch_bounds__(kBlock) project_fwd_kernel(
@@ -334,9 +408,10 @@ __global__ void __launch_bounds__(kBlock) project_fwd_kernel(
   const float cp[3] = {__ldg(cam_pos), __ldg(cam_pos + 1), __ldg(cam_pos + 2)};
   Dir d;
   view_dir(o.m, cp, d);
-  float b[15];
+  float b[15], b4[9];
   sh_basis(d, b);
   const int nb = sh_coeffs(cam.sh_degree);
+  if (nb >= 24) sh_basis4(d, b4);
   const float* c = rest + lane * r3;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
@@ -355,6 +430,12 @@ __global__ void __launch_bounds__(kBlock) project_fwd_kernel(
       float s = b[8] * c[24 + ch];
 #pragma unroll
       for (int j = 9; j < 15; ++j) s = s + b[j] * c[3 * j + ch];
+      col = col + s;
+    }
+    if (nb >= 24) {
+      float s = b4[0] * c[45 + ch];
+#pragma unroll
+      for (int j = 1; j < 9; ++j) s = s + b4[j] * c[3 * (15 + j) + ch];
       col = col + s;
     }
     color[3 * g + ch] = col;
@@ -528,6 +609,22 @@ __device__ __forceinline__ void backward_slot(
       }
     }
   }
+  if (nb >= 24) {
+    float b4[9], db4[9][3];
+    sh_basis4(d, b4);
+    sh_basis4_grad(d, db4);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      float wj = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        wj += gcol[ch] * c[3 * (15 + j) + ch];
+        c[3 * (15 + j) + ch] = b4[j] * gcol[ch];
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) gdir[a] += wj * db4[j][a];
+    }
+  }
   for (int i = 3 * nb; i < 3 * cam.sh_rest; ++i) c[i] = 0.0f;
   // (x, y, z) = dirs r, r = rsqrt(max(|dirs|^2, 1e-24))
   const float g_r = gdir[0] * d.d[0] + gdir[1] * d.d[1] + gdir[2] * d.d[2];
@@ -591,7 +688,7 @@ extern "C" int tpu_splat_project_fwd(const float* means, const float* scaling,
                                      cudaStream_t stream) {
   if (n <= 0) return 0;
   if (cam.tile_size <= 0 || cam.width <= 0 || cam.height <= 0 || cam.sh_degree < 0
-      || cam.sh_degree > 3 || cam.sh_rest < sh_coeffs(cam.sh_degree)
+      || cam.sh_degree > 4 || cam.sh_rest < sh_coeffs(cam.sh_degree)
       || cam.sh_rest > kMaxRest) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -615,7 +712,7 @@ extern "C" int tpu_splat_project_bwd(const float* means, const float* scaling,
                                      cudaStream_t stream) {
   if (n <= 0) return 0;
   if (cam.tile_size <= 0 || cam.width <= 0 || cam.height <= 0 || cam.sh_degree < 0
-      || cam.sh_degree > 3 || cam.sh_rest < sh_coeffs(cam.sh_degree)
+      || cam.sh_degree > 4 || cam.sh_rest < sh_coeffs(cam.sh_degree)
       || cam.sh_rest > kMaxRest) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

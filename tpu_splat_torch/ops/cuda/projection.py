@@ -16,24 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..sh import sh_bands
 from .build import ProjCamera, check, count_launch, kernel, require_cuda
-
-MAX_DEGREE = 3  # the bands the kernels evaluate; an SH-4 colour takes the chain
-SH_BAND_COEFFS = (3, 8, 15, 24)  # rest coefficients a slot of the bands up to degree 1-4
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
-
-
-def sh_bands(active_sh_degree: int, sh_rest: int) -> int:
-    """The SH degree the chain evaluates: the highest band up to `active_sh_degree` whose
-    coefficients `shN` holds (`sh_rest` of them a slot); every lower band with it."""
-    deg = 0
-    for d, need in enumerate(SH_BAND_COEFFS, start=1):
-        if int(active_sh_degree) >= d and sh_rest >= need:
-            deg = d
-    return deg
 
 
 def camera_args(fx, fy, cx, cy, width: int, height: int, tile_size: int,
@@ -41,9 +29,6 @@ def camera_args(fx, fy, cx, cy, width: int, height: int, tile_size: int,
     """The launch arguments: each the float32 value the chain computes with (the clamp's
     bounds are Python floats rounded once, as `torch.clamp` takes them)."""
     deg = sh_bands(active_sh_degree, sh_rest)
-    if deg > MAX_DEGREE:
-        raise ValueError(f"the projection kernels evaluate SH up to degree {MAX_DEGREE}, "
-                         f"got {deg}")
     cam = ProjCamera()
     cam.width, cam.height, cam.tile_size = int(width), int(height), int(tile_size)
     cam.sh_degree, cam.sh_rest = deg, int(sh_rest)

@@ -15,8 +15,8 @@ either precision.
 (`ProjectKernel`, through `cuda/projection.py`, with no host-to-device copy: the camera's
 scalars are launch arguments). `project_plain`, the chain of column ops below with
 autograd's backward, is their plain version: it runs on the CPU, under `impl="plain"`,
-where w2c or the camera position takes a gradient (pose optimisation: the kernel computes
-no camera gradient), and for an SH-4 colour (the kernel evaluates bands up to 3).
+and where w2c or the camera position takes a gradient (pose optimisation: the kernel
+computes no camera gradient).
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .cuda.projection import (MAX_DEGREE, camera_args, project_backward_kernel,
-                              project_kernel, sh_bands)
+from .cuda.projection import camera_args, project_backward_kernel, project_kernel
 from .quat import quat_to_rotmat_cols
 from .sh import sh_to_color
 
@@ -91,14 +90,11 @@ class ProjectKernel(torch.autograd.Function):
                 None, None, None, None)
 
 
-def takes_kernels(means, w2c, cam_position, active_sh_degree: int, sh_rest: int,
-                  impl: str) -> bool:
+def takes_kernels(means, w2c, cam_position, impl: str) -> bool:
     """Whether `project` runs its kernels: under `impl="kernel"` on a CUDA device, unless w2c
-    or cam_position takes a gradient (the kernels compute none for the camera) or the colour
-    has an SH band above MAX_DEGREE (`sh_rest` rest coefficients a slot)."""
+    or cam_position takes a gradient (the kernels compute none for the camera)."""
     return (impl == "kernel" and means.is_cuda
-            and not (w2c.requires_grad or cam_position.requires_grad)
-            and sh_bands(active_sh_degree, sh_rest) <= MAX_DEGREE)
+            and not (w2c.requires_grad or cam_position.requires_grad))
 
 
 def project(
@@ -112,10 +108,10 @@ def project(
 ) -> Projected:
     """Per-Gaussian screen-space quantities of every slot (`project_plain`'s arguments).
     One kernel launch forward and one backward on a CUDA device; the chain on the CPU,
-    under `impl="plain"`, where w2c or cam_position requires grad, and for an SH-4 colour."""
+    under `impl="plain"` and where w2c or cam_position requires grad."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if takes_kernels(means, w2c, cam_position, active_sh_degree, shN.shape[1], impl):
+    if takes_kernels(means, w2c, cam_position, impl):
         cam = camera_args(fx, fy, cx, cy, width, height, tile_size, active_sh_degree,
                           shN.shape[1])
         return Projected(*ProjectKernel.apply(means, scaling_raw, rotation_raw, opacity_raw,

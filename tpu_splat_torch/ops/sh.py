@@ -20,6 +20,17 @@ SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525251999,
          -1.0925484305920792, 0.54627421529603959)
 SH_C3 = (0.59004358992664352, 2.8906114426405538, 0.45704579946446572,
          0.3731763325901154, 1.4453057213202769)
+SH_BAND_COEFFS = (3, 8, 15, 24)  # rest coefficients a slot of the bands up to degree 1-4
+
+
+def sh_bands(active_sh_degree: int, sh_rest: int) -> int:
+    """The SH degree `sh_to_color` evaluates: the highest band up to `active_sh_degree` whose
+    coefficients `shN` holds (`sh_rest` of them a slot); every lower band with it."""
+    deg = 0
+    for d, need in enumerate(SH_BAND_COEFFS, start=1):
+        if int(active_sh_degree) >= d and sh_rest >= need:
+            deg = d
+    return deg
 
 
 def sh_to_color(
@@ -29,7 +40,7 @@ def sh_to_color(
     active_sh_degree: int,
 ) -> torch.Tensor:
     """RGB [N, 3] = 0.5 + SH(dir); NOT clamped here — the blend clamps >= 0."""
-    deg = int(active_sh_degree)
+    deg = sh_bands(active_sh_degree, shN.shape[1])
     # Safe normalize: dirs can be exactly 0 for dead/degenerate slots
     norm_sq = torch.sum(dirs * dirs, dim=-1, keepdim=True)
     d = dirs * torch.rsqrt(torch.clamp_min(norm_sq, 1e-24))
@@ -37,13 +48,13 @@ def sh_to_color(
 
     result = 0.5 + SH_C0 * sh0[:, 0, :]
     c = shN  # [N, K-1, 3]
-    if deg >= 1 and c.shape[1] >= 3:
+    if deg >= 1:
         b1 = (-SH_C1 * y) * c[:, 0] + (SH_C1 * z) * c[:, 1] + (-SH_C1 * x) * c[:, 2]
         result = result + b1
 
     xx, yy, zz = x * x, y * y, z * z
     xy, xz, yz = x * y, x * z, y * z
-    if deg >= 2 and c.shape[1] >= 8:
+    if deg >= 2:
         b2 = (
             (SH_C2[0] * xy) * c[:, 3]
             + (SH_C2[1] * yz) * c[:, 4]
@@ -53,7 +64,7 @@ def sh_to_color(
         )
         result = result + b2
 
-    if deg >= 3 and c.shape[1] >= 15:
+    if deg >= 3:
         b3 = (
             (SH_C3[0] * y * (-3.0 * xx + yy)) * c[:, 8]
             + (SH_C3[1] * xy * z) * c[:, 9]
@@ -65,7 +76,7 @@ def sh_to_color(
         )
         result = result + b3
 
-    if deg >= 4 and c.shape[1] >= 24:
+    if deg >= 4:
         # degree 4 (Sloan fast basis, gsplat/SphericalHarmonicsCUDA.cu:76-103)
         fc1 = xx - yy
         fs1 = 2.0 * xy
