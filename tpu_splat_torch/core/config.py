@@ -38,6 +38,8 @@ class OptimizationParameters:
     init_opacity: float = 0.5
     init_scaling: float = 0.1
     num_workers: int = 16
+    # MCMC's cap (mcmc.cpp:192-347); the ADC pool grows past it as its candidates call
+    # for (training/trainer.py::Trainer._fit_adc_pool)
     max_cap: int = 1_000_000
     eval_steps: list[int] = field(default_factory=lambda: [7_000, 30_000])
     save_steps: list[int] = field(default_factory=lambda: [7_000, 30_000])

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 C0 = 0.28209479177387814  # SH DC basis constant (kernel_utils.cuh:24)
+DEAD_OPACITY_RAW = -15.0  # a dead slot's opacity logit; its rotation is the identity
 
 PARAM_FIELDS = ("means", "sh0", "shN", "scaling_raw", "rotation_raw", "opacity_raw")
 
@@ -57,6 +58,24 @@ class SplatState:
         return dataclasses.replace(
             self, alive=self.alive.to(device),
             **{k: v.to(device) for k, v in self.params().items()})
+
+    def with_capacity(self, capacity: int) -> "SplatState":
+        """This state in a pool of `capacity` slots (at least its own): the slots added
+        are dead and filled as `init_from_pointcloud` fills its dead slots, so a pool
+        grown here equals one that started at `capacity`."""
+        n = capacity - self.capacity
+        if n < 0:
+            raise ValueError(f"capacity {capacity} < the pool's {self.capacity}")
+
+        def pad(v: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+            return torch.cat([v, v.new_full((n,) + tuple(v.shape[1:]), fill)])
+
+        rotation = pad(self.rotation_raw)
+        rotation[self.capacity:, 0] = 1.0
+        return dataclasses.replace(
+            self, means=pad(self.means), sh0=pad(self.sh0), shN=pad(self.shN),
+            scaling_raw=pad(self.scaling_raw), rotation_raw=rotation,
+            opacity_raw=pad(self.opacity_raw, DEAD_OPACITY_RAW), alive=pad(self.alive, False))
 
 
 def mean_neighbor_distances(points, chunk: int = 2048,
@@ -135,7 +154,7 @@ def init_from_pointcloud(
         shN=pad(shN),
         scaling_raw=pad(scaling),
         rotation_raw=rotation,
-        opacity_raw=pad(opacity, fill=-15.0),
+        opacity_raw=pad(opacity, fill=DEAD_OPACITY_RAW),
         alive=alive,
         max_sh_degree=sh_degree,
         scene_scale=scene_scale,

@@ -25,6 +25,9 @@ slots by rank, pruning clears `alive`, everything is a masked scatter, and no co
 read back to the host. When the free pool cannot hold every candidate, the
 highest-gradient candidates win, the free slots going in ascending order to the granted
 candidates best first (ties broken by slot index: a stable sort, as `jnp.argsort`'s).
+The Trainer keeps that case away: before each refinement it moves the state into a larger
+pool when the candidates (`grad_candidates`) outnumber the free slots
+(`training/trainer.py`), so every candidate is granted, as LichtFeld's appends grant them.
 
 Two faults of the JAX version are not copied (ROADMAP.md Queue 3). Its `_claim_free_slots`
 pads the free-slot list with slot C-1 and scatters with duplicate indices, so the last
@@ -79,6 +82,13 @@ def accumulate_densification(
     sq = ((gx * gx).double() + gy.double() * gy.double()).to(gx.dtype)
     mag = torch.sqrt(sq.double()).to(gx.dtype)
     return count + vis, grad2d + vis * mag
+
+
+def grad_candidates(alive: torch.Tensor, dens_count: torch.Tensor, dens_grad2d: torch.Tensor,
+                    grad_threshold: float) -> torch.Tensor:
+    """The slots a refinement grows from (duplicate or split): alive, with an average
+    screen gradient above `grad_threshold` (the test of `grow_gs` on `refine`'s average)."""
+    return alive & (dens_grad2d / torch.clamp_min(dens_count, 1.0) > grad_threshold)
 
 
 def claim_free_slots(alive: torch.Tensor, want: torch.Tensor, priority: torch.Tensor):

@@ -496,6 +496,25 @@ def adc_refine_step(
     return new_ts, info
 
 
+@torch.no_grad()
+def grow_pool(ts: TrainState, capacity: int) -> TrainState:
+    """The state in a pool of `capacity` slots (at least its own; ADC's pool grows, as
+    LichtFeld's appends, default_strategy.cpp:49-227): the new slots dead
+    (`SplatState.with_capacity`), their Adam moments, densification info and ADMM
+    variables zero. The per-image components are unchanged."""
+    n = capacity - ts.splat.capacity
+
+    def pad(v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([v, v.new_zeros((n,) + tuple(v.shape[1:]))])
+
+    adam = dataclasses.replace(ts.adam, exp_avg={k: pad(v) for k, v in ts.adam.exp_avg.items()},
+                               exp_avg_sq={k: pad(v) for k, v in ts.adam.exp_avg_sq.items()})
+    admm = None if ts.admm is None else sp.ADMMState(u=pad(ts.admm.u), z=pad(ts.admm.z))
+    return dataclasses.replace(ts, splat=ts.splat.with_capacity(capacity), adam=adam,
+                               dens_count=pad(ts.dens_count), dens_grad2d=pad(ts.dens_grad2d),
+                               admm=admm)
+
+
 def adc_reset_opacity_step(ts: TrainState, *, prune_opacity: float) -> TrainState:
     splat, adam = strategy_default.reset_opacity(ts.splat, ts.adam, prune_opacity)
     return dataclasses.replace(ts, splat=splat, adam=adam)

@@ -19,7 +19,15 @@ images, cameras and backgrounds to the device through buffers kept from chunk to
 Schedule hooks (all host-dispatched between steps, against the reference's post_backward):
   * MCMC: refine (relocate+grow) on the strict (start, stop) window (mcmc.cpp:501-505).
   * ADC: grow/prune on is_refining (default_strategy.cpp:31-35) + reset_opacity every
-    reset_every iters, both only while iter < stop_refine (:292-309).
+    reset_every iters, both only while iter < stop_refine (:292-309). ADC has no cap
+    (LichtFeld appends its new Gaussians, :49-227; `max_cap` is MCMC's): before a
+    refinement whose candidates outnumber the free slots, the state moves into a pool of
+    the next power of two that holds the alive slots and the candidates (`grow_pool`),
+    so the refinement grants every candidate. Under a mesh the pool keeps its size, and
+    the highest-gradient candidates take the free slots. Spans: `timings["adc_refine"]`
+    (the candidate count, any growth, the refinement and its count readback) and
+    `timings["pool_grow"]`, both first set at the first ADC refinement or growth;
+    counters `pool_grows`, `adc_added` (duplicates + splits granted), `adc_pruned`.
   * ADMM sparsity: init at `iterations`, dual update every 50, final prune at
     iterations + sparsify_steps (sparsity_optimizer.hpp:101-118, trainer.cpp:622-646).
 Each of these iterations ends a chunk of `scan_steps`, and the hook runs with no step in
@@ -90,14 +98,15 @@ from .metrics import MetricsEvaluator
 from .staging import InputStaging
 from .train_step import (RasterPlan, StepConfig, StepStats, TrainState, active_sh_degree,
                          adc_refine_step, adc_reset_opacity_step, admm_init_step,
-                         admm_update_step, init_train_state, refine_step,
+                         admm_update_step, grow_pool, init_train_state, refine_step,
                          sparsity_prune_step, train_step, train_step_many)
 
 log = get_logger(__name__)
 
 # the split of `Trainer.train`'s wall time (seconds), in `Trainer.timings`
 # ("stage", the inputs' staging, and the GUT path's host spans "gut_project" and
-# "gut_rays", `ops/gut.py::host_seconds`, are parts of "dispatch")
+# "gut_rays", `ops/gut.py::host_seconds`, are parts of "dispatch"; ADC's "adc_refine",
+# with "pool_grow" inside it, is a part of "hooks", set at the first ADC refinement)
 TIMING_KEYS = ("data_wait", "dispatch", "stage", *HOST_SPANS, "pending_checks", "hooks",
                "eval", "timelapse", "save")
 
@@ -286,6 +295,9 @@ class Trainer:
         self.refine_log: list[dict] = []  # each topology hook that ran, with its counts
         self.n_redo = 0
         self.steps_dispatched = 0
+        self.pool_grows = 0  # ADC pool growths (`_fit_adc_pool`)
+        self.adc_added = 0  # ADC duplicates + splits granted, summed over `refine_log`
+        self.adc_pruned = 0  # ADC prunes, likewise
         self.eval_renders = 0
         self.timelapse_renders = 0
         self.viewer_renders = 0  # the live viewer's frames (viewer.py), from its threads
@@ -658,13 +670,18 @@ class Trainer:
                 it, opt.start_refine, opt.stop_refine, opt.refine_every,
                 opt.reset_every, opt.pause_refine_after_reset,
             ):
+                t0 = time.perf_counter()
+                self._fit_adc_pool(it)
                 self.state, info = adc_refine_step(
                     self.state,
                     grad_threshold=opt.grad_threshold, grow_scale3d=opt.grow_scale3d,
                     prune_opacity=opt.prune_opacity, prune_scale3d=opt.prune_scale3d,
                     reset_every=opt.reset_every, revised_opacity=opt.revised_opacity,
                 )
-                self._refined(it, "adc", info)
+                counts = self._refined(it, "adc", info)
+                self.adc_added += counts["n_dup"] + counts["n_split"]
+                self.adc_pruned += counts["n_pruned"]
+                self._add_time("adc_refine", t0)
             if it < opt.stop_refine and it % opt.reset_every == 0 and it > 0:
                 self.state = adc_reset_opacity_step(self.state,
                                                     prune_opacity=opt.prune_opacity)
@@ -687,11 +704,39 @@ class Trainer:
                                             n_before=n_before, n_pruned=int(n)))
                 log.info("sparsity prune @%d: removed %d gaussians", it, int(n))
 
-    def _refined(self, it: int, kind: str, info: dict) -> None:
+    def _refined(self, it: int, kind: str, info: dict) -> dict:
         counts = {k: int(v) for k, v in info.items()}
         self.refine_log.append(dict(iteration=it, kind=kind, **counts))
         log.debug("%s refine @%d: %s", kind, it, counts)
         self._emit(ev.ModelUpdated(iteration=it, n_alive=counts["n_alive"]))
+        return counts
+
+    def _fit_adc_pool(self, it: int) -> None:
+        """Before an ADC refinement: count its candidates (one readback) and, when they
+        outnumber the free slots, move the state into a pool of the next power of two
+        that holds the alive slots and the candidates. Under a mesh the pool keeps its
+        size."""
+        if self.mesh is not None:
+            return
+        ts = self.state
+        want = strategy_default.grad_candidates(ts.splat.alive, ts.dens_count,
+                                                ts.dens_grad2d, self.opt.grad_threshold)
+        n_alive, n_cand = torch.stack([ts.splat.n_alive(),
+                                       torch.sum(want, dtype=torch.int32)]).tolist()
+        if n_cand <= ts.splat.capacity - n_alive:
+            return
+        t0 = time.perf_counter()
+        capacity = _next_pow2(n_alive + n_cand)
+        self.state = grow_pool(ts, capacity)
+        self.shard_capacity = capacity
+        self.pool_grows += 1
+        self._add_time("pool_grow", t0)
+        log.info("ADC pool %d -> %d slots @%d (%d alive, %d candidates)",
+                 ts.splat.capacity, capacity, it, n_alive, n_cand)
+
+    def _add_time(self, key: str, t0: float) -> None:
+        """Add the host seconds since `t0` to `timings[key]`, a span set on first use."""
+        self.timings[key] = self.timings.get(key, 0.0) + time.perf_counter() - t0
 
     def _needs_topology_hook(self, it: int) -> bool:
         opt = self.opt
