@@ -49,9 +49,9 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
 7. drives the training path: `init_train_state`, a probe `train_step`, the plan sized from
    the probe (tile 32, chunk 256, bf16 pack), 30 MCMC `train_step`s towards the port's own
    render of a perturbed copy of the scene and one `refine_step`, with every launch count
-   set to 0 just before and read just after; checks one launch of K1-K4 and of the
-   projection's two kernels a step, no call of `emission_order` (K4 reads K3's rows
-   through `emis_col`), no overflow, finite state and a falling loss;
+   set to 0 just before and read just after; checks one launch of K1-K4, of the
+   projection's two kernels and of the fused Adam a step, no call of `emission_order` (K4
+   reads K3's rows through `emis_col`), no overflow, finite state and a falling loss;
 8. holds `rasterize`'s six parameter gradients through the kernels against the plain
    versions at the train step's shapes, and K2-bf16 (with its stop decisions and pair
    counts), K3 (and its repeatability) and K4 (through `emis_col`; bit-equal on runs of at
@@ -61,8 +61,11 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    (`projection_phase`): the pinhole projection's forward and backward kernels
    (`csrc/projection.cu`) against the plain chain on the scene in 2^20 slots at 1296x840,
    tile 16 (the forward bit-equal at SH 0-3, the backward's six gradients at SH 3), their
-   card times, byte bounds and the chain's times; times the step (wall) and its
-   stages (CUDA events);
+   card times, byte bounds and the chain's times; `adam-kernel` (`adam_phase`): the fused
+   Adam (`csrc/adam.cu`) against `adam_step`'s chain at 2^20 and 2^22 slots, SH 3, bit
+   for bit, its card time beside its byte bound and the share it reaches, the chain's
+   time, the host's time of a call each way, ptxas' registers and spills; times the step
+   (wall) and its stages (CUDA events);
 9. drives the GUT camera path (`gut_phases`): `rasterize_gut` of the same scene through a
    distorted pinhole at 1296x840, tile 32, chunk 128, and through a fisheye and a
    rolling-shutter camera at half the size, kernels against plain versions, and K5/K6
@@ -132,8 +135,8 @@ From the root of a checkout, on a machine with a CUDA card and the CUDA toolkit:
    (losses, the refine, the gathered parameters); `trainer-batched` (inside the trainer
    phases), the CLI with `--batch-size 4` on the capture: it/s, images/s, PSNR, launches
    (4 a step, one more an eval render);
-11. prints a `kernels` JSON line (all seven kernels, the pinhole projection's two and the
-   two GUT projection kernels; K2
+11. prints a `kernels` JSON line (all seven kernels, the pinhole projection's two, the
+   two GUT projection kernels and the fused Adam; K2
    in both layouts, K4 at both row counts; K5 and K6 with their pair counts and ptxas'
    registers and spills; each kernel's
    launches in the trainer phases' runs and in the serving phases'), a `frame`
@@ -218,6 +221,11 @@ PROJECT_BWD_BYTES_PER_SLOT = 225 + 40 + 236
 PROJECTION_BLAS = "gemvx"
 # the projection's two wrappers: once a pinhole step (the forward once a frame too)
 PROJECTION_KERNELS = ("project_kernel", "project_backward_kernel")
+# the fused Adam (csrc/adam.cu): a float of every trained leaf reads p, g, m and v and
+# writes p', m' and v', 7 x 4 bytes; a slot at SH 3 holds 59 floats; the phase's sizes
+ADAM_BYTES_PER_FLOAT = 7 * 4
+ADAM_FLOATS_PER_SLOT_SH3 = 3 + 3 + 45 + 3 + 4 + 1
+ADAM_SLOTS = (1 << 20, 1 << 22)
 # the wrappers a pinhole step or render never launches: K5, K6, K7 (the Trainer reduces
 # through K4), the UT projection and the world rays
 NO_PINHOLE_LAUNCH = ("gut_blend_forward", "gut_blend_backward", "segred_prefix",
@@ -1271,6 +1279,120 @@ def projection_phase(sp, focal: float, dev) -> dict:
     return out
 
 
+def adam_case(slots: int, rest: int, dev, seed: int = 0, dead: float = 0.1,
+              unaligned: str | None = None):
+    """Adam's inputs at `slots` slots with `rest` shN coefficients a slot on `dev`: the six
+    parameter leaves, gradients, moments (the `dead` share of the slots with zero gradient
+    and zero moments, as relocated or never-seen slots hold), per-group step counts that
+    differ, and the learning rates of the shipped preset; leaf `unaligned`'s tensors start
+    4 bytes past a 16-byte boundary (the kernel's scalar path). -> (params, grads, state,
+    lrs)"""
+    import torch
+
+    from tpu_splat_torch.core.config import OptimizationParameters
+    from tpu_splat_torch.training.optim import AdamState, group_lrs, means_lr_at
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = dict(means=(3,), sh0=(1, 3), shN=(rest, 3), scaling_raw=(3,),
+                  rotation_raw=(4,), opacity_raw=(1,))
+    is_dead = torch.rand((slots,), device=dev, generator=gen) < dead
+
+    def draw(k, scale, positive=False, live=False):
+        x = torch.randn((slots, *shapes[k]), device=dev, generator=gen) * scale
+        x = x.abs() if positive else x
+        if live:
+            x = torch.where(is_dead.view(-1, *[1] * len(shapes[k])), 0.0, x)
+        if k == unaligned:
+            x = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+        return x
+
+    params = {k: draw(k, 1.0) for k in shapes}
+    grads = {k: draw(k, 1e-3, live=True) for k in shapes}
+    m = {k: draw(k, 1e-3, live=True) for k in shapes}
+    v = {k: draw(k, 1e-6, positive=True, live=True) for k in shapes}
+    # counts at which bias corrections are below 1 in float32 (their reciprocals round)
+    counts = dict(zip(shapes, (7100, 3, 6100, 12, 250, 1)))
+    lrs = dict(group_lrs(OptimizationParameters(), 3.0))
+    lrs["means"] = means_lr_at(lrs["means"], 7099, 30_000)
+    return params, grads, AdamState(exp_avg=m, exp_avg_sq=v, step_count=counts), lrs
+
+
+def check_adam(params, grads, state, lrs, iteration: int, label: str) -> dict:
+    """`adam_step` through the fused kernel against the chain (`impl="plain"`) on the card:
+    parameters and both moments of every leaf bit for bit (NaN bits included), one launch,
+    shN frozen through iteration 1000 (returned as the same tensors), the slots with zero
+    gradient and moments unmoved. -> the differing elements a leaf's tensor (all 0)"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda.adam import adam_kernel
+    from tpu_splat_torch.training.optim import SHN_WARMUP_ITERS, adam_step
+
+    want_p, want_s = adam_step(params, grads, state, lrs, iteration, "plain")
+    launches = adam_kernel.launches
+    got_p, got_s = adam_step(params, grads, state, lrs, iteration, "kernel")
+    torch.cuda.synchronize()
+    require(adam_kernel.launches == launches + 1, f"{label}: the fused Adam launches once")
+    diffs = {}
+    for k in params:
+        for name, a, b in (("p", got_p[k], want_p[k]), ("m", got_s.exp_avg[k],
+                                                          want_s.exp_avg[k]),
+                           ("v", got_s.exp_avg_sq[k], want_s.exp_avg_sq[k])):
+            require(a.shape == b.shape and a.dtype == b.dtype, (label, k, name))
+            diffs[f"{k}.{name}"] = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    frozen = iteration <= SHN_WARMUP_ITERS
+    require(all((x["shN"] is y["shN"]) == frozen for x, y in (
+        (got_p, params), (got_s.exp_avg, state.exp_avg), (got_s.exp_avg_sq, state.exp_avg_sq))),
+        f"{label}: shN must come back as the same tensors while frozen, new ones after")
+    still = {k: bool(((got_p[k] == params[k]) | (grads[k] != 0) | (state.exp_avg[k] != 0)
+                      ).all()) for k in params}
+    require(all(still.values()), (label, "a slot with zero gradient and moments moved", still))
+    require(not any(diffs.values()), (label, "the fused Adam differs from the chain", diffs))
+    return diffs
+
+
+def adam_phase(dev) -> dict:
+    """`adam-kernel`: the fused Adam (`csrc/adam.cu`) against the chain at each of
+    ADAM_SLOTS slots at SH 3 (iteration 7100: all six leaves), bit for bit (`check_adam`),
+    and its card time (`queued_ms`) beside its byte bound (7 x 4 bytes a float of the 59 a
+    slot at 3.35 TB/s) and the share of it reached, the chain's card time, both with the
+    launches' host cost (`cuda_ms`), and the host's time of an `adam_step` call each way;
+    ptxas' registers and spills. -> the phase's numbers"""
+    import torch
+
+    from tpu_splat_torch.ops.cuda import build
+    from tpu_splat_torch.training.optim import adam_step
+
+    out = dict(ptxas=ptxas_summary(build.build_log("adam")), sizes={})
+    for slots in ADAM_SLOTS:
+        params, grads, state, lrs = adam_case(slots, 15, dev)
+        check_adam(params, grads, state, lrs, 7100, f"adam {slots} slots")
+
+        def step(impl):
+            return lambda: adam_step(params, grads, state, lrs, 7100, impl)
+
+        n_bytes = ADAM_BYTES_PER_FLOAT * ADAM_FLOATS_PER_SLOT_SH3 * slots
+        res = dict(bit_equal=True, bytes=n_bytes, bound_ms=bound_ms(n_bytes, 0)[0],
+                   queued_ms=queued_ms(step("kernel"), 20),
+                   ms_with_launch=cuda_ms(step("kernel"), 20),
+                   chain_ms=queued_ms(step("plain"), 10),
+                   chain_ms_with_launch=cuda_ms(step("plain"), 10),
+                   host=dict(kernel=host_ms(step("kernel"), reps=50),
+                             chain=host_ms(step("plain"), reps=50)))
+        res["bound_share"] = res["bound_ms"] / res["queued_ms"]
+        out["sizes"][slots] = res
+        del params, grads, state
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return out
+
+
+def require_adam_launches(launches: dict, steps: int, label: str) -> None:
+    """The fused Adam once a train step, whatever the step renders (a batched step's
+    cameras, the GUT path, pose optimisation)."""
+    require(launches["adam_kernel"] == steps,
+            (f"{label}: the fused Adam must launch once a step", launches, steps))
+
+
 def train_setup(params, focal, dev, cam_params=None, sh_degree=3):
     """bench.py's training workload on `dev`: a fresh TrainState of the scene, the target
     image, the camera, and the plan sized from a probe step as bench.py:90-112 sizes it
@@ -1673,6 +1795,7 @@ def gut_phases(params, focal, dev, counted, kernels) -> dict:
     require(all(launches[k] == GUT_STEPS for k in ("ut_project_kernel",
                                                    "pixel_world_rays_kernel")),
             f"the UT projection and world-ray kernels must launch once a step: {launches}")
+    require_adam_launches(launches, GUT_STEPS, "gut-train")
     require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
             ("overflow", max(totals), max(ktiles), plan))
     require(all(math.isfinite(v) for v in losses), "non-finite loss")
@@ -2135,6 +2258,7 @@ def trainer_phases(params, focal, dev, counted) -> dict:
                 f"K1-K4 must launch once a step (K1, K2 also once an eval render): "
                 f"{launches}, {steps} steps, {evals} eval renders")
         require_projection_launches(launches, steps, evals, "trainer-pinhole")
+        require_adam_launches(launches, steps, "trainer-pinhole")
         require(len(t._loss_hist) == TRAINER_ITERS and steps >= TRAINER_ITERS, pin)
         require(all(math.isfinite(v) for v in t._loss_hist), "non-finite trainer loss")
         require(pin["loss_last8"] < pin["loss_first8"], ("the loss did not fall", pin))
@@ -2169,6 +2293,7 @@ def trainer_phases(params, focal, dev, counted) -> dict:
                                                     "segred_prefix", *PROJECTION_KERNELS)),
                 f"K1, K5, K6, K4, the UT projection and the world rays must launch once a "
                 f"GUT step, the pinhole projection never: {launches}, {steps} steps")
+        require_adam_launches(launches, steps, "trainer-gut")
         require(len(t._loss_hist) == TRAINER_GUT_ITERS
                 and all(math.isfinite(v) for v in t._loss_hist), "GUT trainer losses")
         require(gut["loss_last8"] < gut["loss_first8"], ("the GUT loss did not fall", gut))
@@ -2238,6 +2363,7 @@ def require_launches(launches: dict, t, label: str, pose: bool = False) -> None:
             f"{label}: K1-K4 must launch once a step (K1, K2 also once an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
     require_projection_launches(launches, steps, evals, label, pose)
+    require_adam_launches(launches, steps, label)
 
 
 def require_alive_chain(t, label: str) -> list:
@@ -2744,7 +2870,8 @@ def serving_frames(state, sh4_state, focal, dev, counted) -> dict:
         img_err, alpha_err = max_err(got.image, want.image), max_err(got.alpha, want.alpha)
         require(all(launches[k] == 1 for k in ("expand_emission", "blend_forward",
                                                "project_kernel"))
-                and launches["project_backward_kernel"] == 0, (label, launches))
+                and launches["project_backward_kernel"] == launches["adam_kernel"] == 0,
+                (label, launches))
         require(bool(torch.isfinite(got.image).all()) and img_err <= 1e-4
                 and alpha_err <= 1e-4, (label, img_err, alpha_err))
         out[label] = dict(image_err=img_err, alpha_err=alpha_err, launches=launches,
@@ -2776,10 +2903,11 @@ def sh4_train_steps(params4, focal, dev, counted) -> dict:
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     once = ("expand_emission", "blend_forward", "blend_backward", "segsum_emission",
-            "project_kernel", "project_backward_kernel")
+            "project_kernel", "project_backward_kernel", "adam_kernel")
     require(all(launches[fn.__name__] == (SH4_STEPS if fn.__name__ in once else 0)
                 for fn in counted),
-            f"SH 4 steps: K1-K4 and the projection's two kernels once a step: {launches}")
+            f"SH 4 steps: K1-K4, the projection's two kernels and the fused Adam once a "
+            f"step: {launches}")
     require(all(math.isfinite(v) for v in losses), "non-finite SH 4 loss")
     for k, v in ts.splat.params().items():
         require(bool(torch.isfinite(v).all()), f"non-finite {k} after SH 4 steps")
@@ -3023,6 +3151,7 @@ def trainer_live_phase(root: Path, dev, counted, pinhole_it_per_s: float) -> dic
             ("trainer-live launches", launches, steps, evals, t.timelapse_renders,
              t.viewer_renders))
     require_projection_launches(launches, steps, renders, "trainer-live")
+    require_adam_launches(launches, steps, "trainer-live")
     require(len(t._loss_hist) == LIVE_ITERS and all(math.isfinite(v) for v in t._loss_hist),
             "trainer-live losses")
     its = [s["iteration"] for s in log_["status"]]
@@ -3291,7 +3420,9 @@ def batched_step_phase(params, focal, dev, counted, plan) -> dict:
         losses.append(float(st.loss))
     launches = {fn.__name__: fn.launches for fn in counted}
     require(all(launches[fn.__name__] == (BATCH * BATCHED_STEPS if fn in counted[:6] else 0)
-                for fn in counted), f"K1-K4 must launch {BATCH} times a step: {launches}")
+                for fn in counted if fn.__name__ != "adam_kernel"),
+            f"K1-K4 must launch {BATCH} times a step: {launches}")
+    require_adam_launches(launches, BATCHED_STEPS, "batched-step")
     require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
             ("batched losses", losses))
     step_ms = statistics.median(wall[2:])
@@ -3388,9 +3519,10 @@ def batched_gut_step_phase(params, focal, dev, counted, plan) -> dict:
     per_step = ("expand_emission", "segsum_emission", "gut_blend_forward",
                 "gut_blend_backward", "ut_project_kernel", "pixel_world_rays_kernel")
     require(all(n == (BATCH * BATCHED_GUT_STEPS if k in per_step else 0)
-                for k, n in launches.items()),
+                for k, n in launches.items() if k != "adam_kernel"),
             f"K1, K4, K5, K6, the UT projection and the world rays must launch {BATCH} "
             f"times a step, the others never: {launches}")
+    require_adam_launches(launches, BATCHED_GUT_STEPS, "batched-gut-step")
     require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
             ("batched GUT losses", losses))
     step_ms = statistics.median(wall[2:])
@@ -3498,6 +3630,7 @@ def trainer_batched_phase(root: Path, dev, counted) -> dict:
             f"K1-K4 must launch {BATCH} times a step (K1, K2 once more an eval render): "
             f"{launches}, {steps} steps, {evals} eval renders")
     require_projection_launches(launches, BATCH * steps, evals, "trainer-batched")
+    require_adam_launches(launches, steps, "trainer-batched")
     require(len(t._loss_hist) == last and all(math.isfinite(v) for v in t._loss_hist),
             "batched trainer losses")
     res = trainer_summary(t, launches, t.wall_s)
@@ -3602,6 +3735,7 @@ def main() -> int:
     from tpu_splat_torch.ops.cuda.gut_project import (pixel_world_rays_kernel,
                                                       ut_project_kernel)
     from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
+    from tpu_splat_torch.ops.cuda.adam import adam_kernel
     from tpu_splat_torch.ops.cuda import raster
     from tpu_splat_torch.ops.cuda.raster import (build_sorted_instances, emission_tables,
                                                  expand_emission, expand_emission_plain,
@@ -3624,7 +3758,7 @@ def main() -> int:
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
     counted = (expand_emission, blend_forward, blend_backward, segsum_emission,
                project_kernel, project_backward_kernel, gut_blend_forward, gut_blend_backward,
-               segred_prefix, ut_project_kernel, pixel_world_rays_kernel)
+               segred_prefix, ut_project_kernel, pixel_world_rays_kernel, adam_kernel)
     render_kernels = ("expand_emission", "blend_forward")  # the render path's two
 
     # -- build every kernel of the path from the checkout's sources
@@ -3883,10 +4017,10 @@ def main() -> int:
     losses = [float(st.loss) for st in stats]
     totals = [int(st.total_instances) for st in stats]
     ktiles = [int(st.max_tile_count) for st in stats]
-    require(all(train_launches[fn.__name__] == (TRAIN_STEPS if fn in counted[:6] else 0)
-                for fn in counted),
-            f"K1-K4 and the projection's two must launch once a step and no GUT kernel: "
-            f"{train_launches}")
+    require(all(train_launches[fn.__name__] == (
+        TRAIN_STEPS if fn in counted[:6] or fn is adam_kernel else 0) for fn in counted),
+            f"K1-K4, the projection's two and the fused Adam must launch once a step and no "
+            f"GUT kernel: {train_launches}")
     require(max(totals) <= plan.max_instances and max(ktiles) <= plan.k_max,
             ("overflow", max(totals), max(ktiles), plan))
     require(all(math.isfinite(v) for v in losses), "non-finite loss")
@@ -4010,6 +4144,20 @@ def main() -> int:
     kernels[-1]["max_abs_err_of"] = "the largest leaf's gap over its largest gradient"
     torch.cuda.empty_cache()
 
+    # -- the fused Adam against the chain, bit for bit, and its time beside its byte bound,
+    # at the 1M cells' and the ADC cell's capacities
+    adam_p = adam_phase(dev)
+    phase("adam-kernel", **adam_p)
+    big = adam_p["sizes"][ADAM_SLOTS[-1]]
+    kernels.append(dict(
+        name="adam", route="cuda", source="tpu_splat_torch/csrc/adam.cu",
+        shapes=f"{ADAM_SLOTS[-1]} slots, SH 3, six leaves",
+        replaces="none: the JAX package leaves Adam to XLA (tpu_splat/training/optim.py)",
+        launches=train_launches["adam_kernel"], max_abs_err=0.0, ms=big["queued_ms"],
+        plain_ms=big["chain_ms"], bound_ms=big["bound_ms"], bound_by="bytes",
+        library_ms=None, bytes=big["bytes"], ms_with_launch=big["ms_with_launch"]))
+    torch.cuda.empty_cache()
+
     # -- the step's split: the stages of train_step, each between two CUDA events
     stage_names = ("project", "instances", "pack", "blend_fwd", "loss", "blend_bwd", "segsum",
                    "project_bwd", "adam", "noise")
@@ -4117,7 +4265,8 @@ def main() -> int:
                         viewer=viewer_res, trainer_live=trainer["live"])
     # gut_project.cu and projection.cu hold two kernels each: those go by their entries' names
     wrapper_of.update(gut_project="ut_project_kernel", gut_rays="pixel_world_rays_kernel",
-                      projection="project_kernel", projection_bwd="project_backward_kernel")
+                      projection="project_kernel", projection_bwd="project_backward_kernel",
+                      adam="adam_kernel")
     for entry in kernels:
         fn = wrapper_of.get(entry["name"]) or wrapper_of[entry["source"].rsplit("/", 1)[1]]
         entry["trainer_launches"] = {k: v["launches"][fn] for k, v in runs.items()}

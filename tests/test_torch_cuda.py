@@ -42,7 +42,12 @@ checked, whose order the kernel repeats), the backward's six gradients within 1e
 leaf's largest (K3's convention), finite where the chain's are, zero on dead slots and above
 the active degree, and no further from the chain in float64 than twice the float32 chain;
 neither projection kernel synchronises; each launches once a train step, at SH 3 and at SH 4,
-and a step with pose optimisation takes the chain.
+and a step with pose optimisation takes the chain;
+the fused Adam (`csrc/adam.cu`) against `adam_step`'s chain: parameters and moments of every
+leaf bit for bit at 1003 (a ragged count), 2^16 and 2^22 slots, SH 3 and 4, shN frozen at
+iteration 1000 and trained at 7100, zero gradients and moments left unmoved, leaves that
+start off a 16-byte boundary; one launch a train step, no synchronisation, and a
+`ValueError` for a leaf that is not contiguous float32 on the parameters' card.
 """
 
 import dataclasses
@@ -58,6 +63,7 @@ from tpu_splat_torch.ops.cuda.blend import (NFEAT, blend_backward, blend_backwar
 from tpu_splat_torch.ops import gut
 from tpu_splat_torch.ops.cuda.gut_kernels import gut_blend_forward
 from tpu_splat_torch.ops.cuda.gut_project import pixel_world_rays_kernel, ut_project_kernel
+from tpu_splat_torch.ops.cuda.adam import adam_kernel
 from tpu_splat_torch.ops.cuda.projection import project_backward_kernel, project_kernel
 from tpu_splat_torch.ops.projection import project
 from tpu_splat_torch.ops.cameras import CameraParams, bind_coeffs, fisheye_max_angle
@@ -70,10 +76,10 @@ from tpu_splat_torch.core.config import OptimizationParameters
 from tpu_splat_torch.training.train_step import (RasterPlan, StepConfig, init_train_state,
                                                  train_step)
 
-from chip_smoke import (blend_pairs, check_gut_kernels, check_gut_projection, check_gut_rays,
-                        check_projection, gut_border_segments, gut_test_cameras,
-                        projection_cotangents, projection_grads, random_gut_segments,
-                        random_segments)
+from chip_smoke import (adam_case, blend_pairs, check_adam, check_gut_kernels,
+                        check_gut_projection, check_gut_rays, check_projection,
+                        gut_border_segments, gut_test_cameras, projection_cotangents,
+                        projection_grads, random_gut_segments, random_segments)
 from torch_fixtures import blend_fixture, emission_runs
 
 
@@ -522,13 +528,14 @@ def test_trainer_runs_through_the_kernels_on_card(tmp_path):
     trainer = Trainer(tp)
     counted = (raster.expand_emission, blend.blend_forward, blend.blend_backward,
                raster.segsum_emission)
-    for fn in counted + (gut_blend_forward, segred_prefix):
+    for fn in counted + (gut_blend_forward, segred_prefix, adam_kernel):
         fn.launches = 0
     trainer.train()
     torch.cuda.synchronize()
     steps, evals = trainer.steps_dispatched, trainer.eval_renders
     assert steps >= 10 and evals == 1
     assert [fn.launches for fn in counted] == [steps + evals] * 2 + [steps] * 2
+    assert adam_kernel.launches == steps
     assert gut_blend_forward.launches == 0 and segred_prefix.launches == 0
     assert len(trainer._loss_hist) == 10 and np.isfinite(trainer._loss_hist).all()
     back = load_splat_ply(tmp_path / "out" / "splat_final.ply")
@@ -1131,3 +1138,81 @@ def test_projection_kernels_launch_once_a_step_at_sh4_on_card():
     assert np.isfinite(float(stats.loss))
     assert (project_kernel.launches, project_backward_kernel.launches) == (
         launches[0] + 3, launches[1] + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iteration", [1000, 7100])
+@pytest.mark.parametrize("rest", [15, 24])
+@pytest.mark.parametrize("slots", [1003, 1 << 16, 1 << 22])
+def test_adam_kernel_matches_chain_bit_for_bit_on_card(slots, rest, iteration):
+    """The fused Adam against `adam_step`'s chain (`chip_smoke.check_adam`): parameters and
+    both moments of all six leaves bit for bit, one launch; 1003 slots leave a ragged tail
+    in every leaf of 3 or 45 floats a slot (the kernel's scalar path); SH 3 and 4 (15 and 24
+    rest coefficients); shN frozen at 1000 (the same tensors back) and trained at 7100; the
+    dead tenth of the slots, with zero gradients and moments, unmoved."""
+    _require_cuda()
+    case = adam_case(slots, rest, torch.device("cuda"), seed=slots + rest)
+    check_adam(*case, iteration, f"{slots} slots, {rest} rest coefficients, it {iteration}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", ["means", "shN", "opacity_raw"])
+def test_adam_kernel_takes_unaligned_leaves_on_card(leaf):
+    """A leaf whose tensors start 4 bytes past a 16-byte boundary (contiguous views at an
+    offset) takes the kernel's scalar path, bit for bit with the chain; the others keep
+    their vector path in the same launch."""
+    _require_cuda()
+    case = adam_case(1 << 16, 15, torch.device("cuda"), unaligned=leaf)
+    assert case[0][leaf].data_ptr() % 16 == 4
+    check_adam(*case, 7100, f"{leaf} unaligned")
+
+
+@pytest.mark.cuda
+def test_adam_kernel_launches_once_a_step_without_synchronising_on_card():
+    """Three train steps launch the fused Adam once each; under
+    `torch.cuda.set_sync_debug_mode("error")` an `adam_step` through the kernel raises
+    nothing (its scalars are launch arguments), and the state stays finite."""
+    _require_cuda()
+    from tpu_splat_torch.training.optim import adam_step
+
+    ts, args, kw = _small_train_case()
+    launches = adam_kernel.launches
+    for _ in range(3):
+        ts, stats = train_step(ts, *args, 1, **kw)
+    torch.cuda.synchronize()
+    assert adam_kernel.launches == launches + 3
+    assert np.isfinite(float(stats.loss))
+    params, grads, state, lrs = adam_case(1 << 16, 15, torch.device("cuda"))
+    adam_step(params, grads, state, lrs, 7100)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            new_params, _ = adam_step(params, grads, state, lrs, 7100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert adam_kernel.launches == launches + 6
+    assert all(bool(torch.isfinite(v).all()) for v in new_params.values())
+
+
+@pytest.mark.cuda
+def test_adam_kernel_raises_on_leaves_it_does_not_take_on_card():
+    """On the card `adam_step` launches the kernel or raises, with no fallback: a leaf that is
+    not contiguous, not float32, or on the CPU beside CUDA leaves is a `ValueError`, and
+    nothing launches."""
+    _require_cuda()
+    from tpu_splat_torch.training.optim import adam_step
+
+    params, grads, state, lrs = adam_case(1024, 15, torch.device("cuda"))
+    launches = adam_kernel.launches
+    strided = dict(grads, means=grads["means"].T.contiguous().T)
+    assert not strided["means"].is_contiguous()
+    cases = [(params, strided, "contiguous CUDA tensor"),
+             (dict(params, sh0=params["sh0"].double()), grads, "float32"),
+             (dict(params, opacity_raw=params["opacity_raw"].cpu()), grads,
+              "contiguous CUDA tensor")]
+    for p, g, match in cases:
+        with pytest.raises(ValueError, match=match):
+            adam_step(p, g, state, lrs, 7100)
+    assert adam_kernel.launches == launches

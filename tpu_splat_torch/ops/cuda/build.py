@@ -60,6 +60,25 @@ class ProjCamera(ctypes.Structure):
                 ("lo_x", _F), ("hi_x", _F), ("lo_y", _F), ("hi_y", _F)]
 
 
+class AdamLeaf(ctypes.Structure):
+    """`struct AdamLeaf` of csrc/adam.cu: one leaf's seven tensors, its element count, its
+    learning rate and bias corrections' reciprocals, and whether its pointers are 16-byte
+    aligned."""
+
+    _fields_ = [("p", _P), ("g", _P), ("m", _P), ("v", _P), ("p_out", _P), ("m_out", _P),
+                ("v_out", _P), ("n", _L), ("lr", _F), ("inv_bc1", _F), ("inv_bc2", _F),
+                ("vec", _I)]
+
+
+ADAM_MAX_LEAVES = 6  # kMaxLeaves of csrc/adam.cu
+
+
+class AdamArgs(ctypes.Structure):
+    """`struct AdamArgs` of csrc/adam.cu, passed by value: the leaves of one launch."""
+
+    _fields_ = [("leaf", AdamLeaf * ADAM_MAX_LEAVES), ("n_leaves", _I)]
+
+
 # C entry point of each library: (symbol, argtypes), built from `csrc/<name>.cu` unless
 # `_SOURCE` names another source; every one returns a cudaError_t
 ENTRY_POINTS = {
@@ -84,6 +103,7 @@ ENTRY_POINTS = {
     "projection_bwd": ("tpu_splat_project_bwd",
                        (_P, _P, _P, _P, _P, _P, _I, _P, _P, ProjCamera,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P)),
+    "adam": ("tpu_splat_adam", (AdamArgs, _P)),
 }
 # the source of an entry point whose library is not `<name>.cu`
 _SOURCE = {"gut_rays": "gut_project", "projection_bwd": "projection"}

@@ -137,7 +137,7 @@ def batched_train_step(
 
     new_ts = update_tail(ts, opt, head, grads, total_iterations=total_iterations,
                          noise_rows=noise_rows, adc_rows=adc_rows, width=width,
-                         height=height)
+                         height=height, impl=impl)
     # the global loss on every rank: the photometric part once a data group, the
     # regularisers once a gauss shard
     parts = torch.stack([photo.detach() if mesh.g == 0 else torch.zeros_like(photo),

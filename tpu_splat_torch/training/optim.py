@@ -13,6 +13,8 @@ corrections and the means learning rate are host scalars; they are computed in f
 as the JAX package computes them on the device, so the two agree to rounding. The step is
 functional like the JAX one: it returns new parameter and moment tensors and leaves its
 inputs untouched (a caller may keep the state of before a step, as the plan probe does).
+On the card the step is one kernel launch over every trained leaf (`ops/cuda/adam.py`),
+bit for bit the chain of elementwise ops it runs on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..ops.cuda.adam import adam_kernel
 
 BETA1 = 0.9
 BETA2 = 0.999
@@ -73,6 +77,23 @@ def _bias_correction(beta: float, count: int) -> float:
     return float(np.float32(1.0) - np.power(np.float32(beta), np.float32(count)))
 
 
+IMPLS = ("kernel", "plain")
+
+
+def _adam_plain(p, g, m, v, lr: float, bc1: float, bc2: float):
+    """One leaf's step as a chain of elementwise ops: the plain version of
+    `ops/cuda/adam.py::adam_kernel`, which repeats these operations in this order."""
+    m2 = BETA1 * m + (1.0 - BETA1) * g
+    v2 = BETA2 * v + (1.0 - BETA2) * g * g
+    update = float(np.float32(lr)) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + EPS)
+    return p - update, m2, v2
+
+
+def takes_kernel(params: dict[str, torch.Tensor], impl: str) -> bool:
+    """Whether `adam_step` launches `adam_kernel`: under `impl="kernel"` on CUDA leaves."""
+    return impl == "kernel" and any(p.is_cuda for p in params.values())
+
+
 @torch.no_grad()
 def adam_step(
     params: dict[str, torch.Tensor],
@@ -80,28 +101,31 @@ def adam_step(
     state: AdamState,
     lrs: dict[str, float],
     iteration: int,
+    impl: str = "kernel",  # "plain" runs the chain on any device
 ) -> tuple[dict[str, torch.Tensor], AdamState]:
-    """One Adam step over all six groups. `iteration` is the 1-based train iter."""
-    new_params, new_m, new_v, new_c = {}, {}, {}, {}
-    for k in params:
-        m = state.exp_avg[k]
-        v = state.exp_avg_sq[k]
-        c = state.step_count[k] + 1
-        new_c[k] = c
-        if k == "shN" and iteration <= SHN_WARMUP_ITERS:
-            # shN frozen for the first 1000 iters; step_count still advances
-            # (fused_adam.cpp:66-70: increment precedes the skip).
-            new_params[k], new_m[k], new_v[k] = params[k], m, v
-            continue
-        g = grads[k]
-        m2 = BETA1 * m + (1.0 - BETA1) * g
-        v2 = BETA2 * v + (1.0 - BETA2) * g * g
-        bc1 = _bias_correction(BETA1, c)
-        bc2 = _bias_correction(BETA2, c)
-        update = float(np.float32(lrs[k])) * (m2 / bc1) / (torch.sqrt(v2 / bc2) + EPS)
-        new_params[k] = params[k] - update
-        new_m[k] = m2
-        new_v[k] = v2
+    """One Adam step over all six groups. `iteration` is the 1-based train iter. On a CUDA
+    device every trained leaf is updated in one launch of `adam_kernel` (it raises on a
+    leaf that is not contiguous float32 on the parameters' card); on the CPU and under
+    `impl="plain"` each leaf by the chain `_adam_plain`."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    new_c = {k: state.step_count[k] + 1 for k in params}
+    # shN frozen for the first 1000 iters, returned as it is; step_count still advances
+    # (fused_adam.cpp:66-70: increment precedes the skip).
+    trained = [k for k in params if not (k == "shN" and iteration <= SHN_WARMUP_ITERS)]
+    args = [[d[k] for k in trained] for d in (params, grads, state.exp_avg, state.exp_avg_sq)]
+    lr = [lrs[k] for k in trained]
+    bc1 = [_bias_correction(BETA1, new_c[k]) for k in trained]
+    bc2 = [_bias_correction(BETA2, new_c[k]) for k in trained]
+    if takes_kernel(params, impl):
+        outs = zip(*adam_kernel(*args, lr, bc1, bc2))
+    else:
+        outs = map(_adam_plain, *args, lr, bc1, bc2)
+    new_params = dict(params)
+    new_m = {k: state.exp_avg[k] for k in params}
+    new_v = {k: state.exp_avg_sq[k] for k in params}
+    for k, (p2, m2, v2) in zip(trained, outs):
+        new_params[k], new_m[k], new_v[k] = p2, m2, v2
     return new_params, AdamState(exp_avg=new_m, exp_avg_sq=new_v, step_count=new_c)
 
 

@@ -299,19 +299,20 @@ class GradHead:
 
 
 def update_tail(ts: TrainState, opt: Any, head: GradHead, grads: StepGrads, *,
-                total_iterations: int, noise_rows, adc_rows, width: int,
-                height: int) -> TrainState:
-    """The update that both train steps end with, in this order: the learning rates, Adam,
-    the MCMC noise (`noise_rows()`: the state's rows of the draw, None to draw them from
-    ts.rng), ADC's accumulation over `adc_rows(mean2d gradient)`'s (gradient, visibility)
-    pairs in camera order, the pose and bilateral optimizers. -> the next state."""
+                total_iterations: int, noise_rows, adc_rows, width: int, height: int,
+                impl: str) -> TrainState:
+    """The update that both train steps end with, in this order: the learning rates, Adam
+    (one kernel launch on the card, the chain under `impl="plain"`), the MCMC noise
+    (`noise_rows()`: the state's rows of the draw, None to draw them from ts.rng), ADC's
+    accumulation over `adc_rows(mean2d gradient)`'s (gradient, visibility) pairs in camera
+    order, the pose and bilateral optimizers. -> the next state."""
     splat = ts.splat
     it = ts.iteration
     lrs = dict(group_lrs(opt, splat.scene_scale))
     # ExponentialLR stepped once per iteration; iteration is 1-based so step i uses gamma^(i-1)
     lrs["means"] = means_lr_at(lrs["means"], it - 1, total_iterations)
 
-    new_params, new_adam = adam_step(splat.params(), grads.params, ts.adam, lrs, it)
+    new_params, new_adam = adam_step(splat.params(), grads.params, ts.adam, lrs, it, impl)
     new_splat = splat.replace_params(new_params)
 
     # MCMC noise injection every step, scaled by current means lr (mcmc.cpp:349-367)
@@ -414,7 +415,7 @@ def train_step(
     new_ts = update_tail(ts, opt, head, head.grads(loss), total_iterations=total_iterations,
                          noise_rows=lambda: noise,
                          adc_rows=lambda mean2d: [(mean2d, out.aux.visible)],
-                         width=width, height=height)
+                         width=width, height=height, impl=impl)
     stats = StepStats(
         loss=loss.detach(),
         total_instances=out.aux.total_instances,
